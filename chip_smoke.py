@@ -6,26 +6,47 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. Card and build: prints the card's name and power limit (nvidia-smi) and
-   builds every CUDA kernel of the port from dabmod_tpu_torch/ops/csrc/.
-2. Each kernel against its plain PyTorch version on the card: the OFDM
-   IFFT at all four spacings (TM I-IV), with each mode's own composed
-   carrier->bin table, on random carrier planes (numpy seed).
+   builds every CUDA kernel of the port from dabmod_tpu_torch/ops/csrc/
+   (one nvcc per source, all started together), with each kernel's
+   registers and shared memory as ptxas reports them.
+2. Each kernel against its plain PyTorch version on the card, on inputs
+   made from a numpy seed:
+   * K1, the OFDM IFFT, at all four spacings (TM I-IV), with each mode's
+     own composed carrier->bin table, on random carrier planes;
+   * K2, the OFDM IFFT + CFR, the same way, with clip = 1.2 x the mean
+     magnitude before CFR and error clip 0.5 (tests/test_ofdm_kernel.py:
+     43-44); its clip counts may differ from the plain version's by the
+     samples within 1e-5 (relative) of a threshold, which it prints;
+   * K3, the polyphase resampler, at 3.072, 4.096 and 8.192 MS/s and
+     (resampler_mode="poly") 1.024 MS/s, so L/M = 3/2, 2, 4 and 1/2, on a
+     stream of the main path's length (24 TFs), and two half-stream calls
+     with the carry against one call.
 3. The front end against the reference goldens in tests/golden/
    (e2e_symbols: 2 TFs, 2 sub-channels; e2e_real_symbols: 4 TFs, the
    17-sub-channel ensemble).
-4. The main path at full width: TM I, the 17-sub-channel / 855-CU
-   ensemble and the 2-sub-channel bench ensemble, batch_tf=24 (24 x
-   196,608 samples a step), two consecutive batches carrying the state,
-   as f32 planes and as s16 wire words, against the port run on the CPU
-   on the same ETI.  The kernels' launch counts are set to 0 just before
-   the card's runs and read just after.
-5. Times on the card (CUDA events, warm-up, median of 25 runs): the main
-   path's step time (with its quartiles), the host's time to issue a step
-   in the same runs, samples/s and a torch.profiler breakdown in both
-   formats; each kernel (20 back-to-back calls a run, cycling through
-   input sets larger than L2 together, and again on one input set), its
-   plain version, one PyTorch library call as a yardstick, and the
-   kernel's bound from this run's shapes.
+4. Three paths at full width, TM I, batch_tf=24 (24 x 196,608 samples a
+   step in), two consecutive batches carrying the state, as f32 planes and
+   as s16 wire words, against the port run on the CPU on the same ETI:
+   * "main": the 17-sub-channel / 855-CU ensemble and the 2-sub-channel
+     bench ensemble at 2.048 MS/s (K1);
+   * "realistic17_cfr_8m192": the 17-sub-channel ensemble with CFR
+     (clip 40.0, error clip 3.0, doc/example.ini:56-59) and output at
+     8.192 MS/s through the polyphase resampler (K2, K3), its statistics
+     (clip counts, PAPR, MER) and state (mer_index, res_carry) included.
+     At these settings the error clip never acts;
+   * "realistic17_cfr30_3m072": the same ensemble with CFR at clip 30.0,
+     error clip 0.1 (tests/test_quality.py:151-154), where the error clip
+     acts on every TF, and output at 3.072 MS/s (L/M = 3/2) (K2, K3).
+   Each path's kernel launch counts are set to 0 just before its card run
+   and read just after; a kernel's launches are summed over its paths.
+5. Times on the card (CUDA events, warm-up, median of 25 runs): each path's
+   step time (with its quartiles), the host's time to issue a step in the
+   same runs, samples/s at the output rate and a torch.profiler breakdown
+   in both formats; each kernel (20 back-to-back calls a run, cycling
+   through input sets larger than L2 together, and again on one input
+   set), its plain version, one PyTorch library call as a yardstick where
+   one computes the same function, and the kernel's bound from this run's
+   shapes.
 
 TF32 is switched off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False): every tolerance below assumes fp32
@@ -52,6 +73,18 @@ N_TIMED = 25
 N_WARM = 3
 KERNEL_REPS = 20      # back-to-back kernel calls per timed run
 L2_SETS = 4           # TM I input sets cycled: 4 x 22.7 MB > the 50 MB L2
+RES_L2_SETS = 3       # resampler input sets: 3 x 37.7 MB > the 50 MB L2
+MARGIN_REL = 1e-5     # CFR threshold band (ofdm_kernel.cfr_threshold_margin)
+K2_ERROR_CLIP = 0.5   # phase 2's error clip (tests/test_ofdm_kernel.py:44)
+# the CFR + resampler path: doc/example.ini:56-59, the DPD feedback rate
+CFR_8M192 = dict(enable_cfr=True, cfr_clip=40.0, cfr_error_clip=3.0,
+                 output_rate=8_192_000)
+# CFR where the error clip acts (tests/test_quality.py:151-154), L/M = 3/2
+CFR30_3M072 = dict(enable_cfr=True, cfr_clip=30.0, cfr_error_clip=0.1,
+                   output_rate=3_072_000)
+# K3's rates in phase 2: L/M = 3/2, 1/2 (decimation), 2, 4
+RES_RATES = ((3_072_000, "auto"), (1_024_000, "poly"), (4_096_000, "auto"),
+             (8_192_000, "auto"))
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and fp32 (non-tensor) peak
 HBM_BYTES_PER_S = 3.35e12
@@ -133,6 +166,27 @@ def cycled(fn, inputs):
     return lambda: fn(next(it))
 
 
+def kernel_times(torch, fns) -> dict:
+    """For each key of fns ("", "plain_", "library_") and its (fn, input
+    sets): the median ms per call cycling through the sets (`<key>ms`)
+    and reusing the first (`<key>ms_warm_l2`)."""
+    times = {}
+    for key, (fn, inputs) in fns.items():
+        times[key + "ms"] = time_ms(torch, cycled(fn, inputs),
+                                    reps=KERNEL_REPS)
+        times[key + "ms_warm_l2"] = time_ms(
+            torch, lambda fn=fn, x=inputs[0]: fn(x), reps=KERNEL_REPS)
+    return times
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -149,12 +203,14 @@ def phase_card_and_build(torch):
         f"{torch.cuda.get_device_name(0)}")
     from dabmod_tpu_torch.ops import build
     t0 = time.perf_counter()
-    path = build.build("ofdm_ifft")
-    log(f"[1] built ofdm_ifft in {time.perf_counter() - t0:.1f} s (nvcc)")
-    with open(path + ".log") as f:
-        ptxas = " | ".join(ln.strip() for ln in f
-                           if "registers" in ln or "smem" in ln)
-    log(f"    ofdm_ifft: {ptxas}")
+    paths = build.build(*build.SOURCES)
+    log(f"[1] built {', '.join(build.SOURCES)} in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    for name, path in zip(build.SOURCES, paths):
+        with open(path + ".log") as f:
+            ptxas = " | ".join(ln.strip() for ln in f
+                               if "registers" in ln or "smem" in ln)
+        log(f"    {name}: {ptxas}")
     return card
 
 
@@ -168,20 +224,25 @@ def mode_table(mode, device):
     return ofdm_kernel.make_table(src_pre, valid, device)
 
 
+def random_planes(torch, rng, shape):
+    return tuple(torch.as_tensor(
+        rng.standard_normal(shape).astype(np.float32), device="cuda")
+        for _ in range(2))
+
+
 def phase_kernels(torch):
-    """K1 against its plain version at all four spacings; returns the TM I
-    (main-path shape) inputs, table and max abs error."""
+    """K1 and K2 against their plain versions at all four spacings, K3 at
+    4.096 and 8.192 MS/s; returns each kernel's main-path-shaped inputs
+    and its max abs error there, for phase 5."""
     from dabmod_tpu_torch import tables
     from dabmod_tpu_torch.ops import ofdm_kernel
     rng = np.random.default_rng(SEED)
-    tm1 = None
+    out = {}
     for mode in (1, 2, 3, 4):
         p = tables.mode_params(mode)
         batch = BATCH_TF if mode == 1 else 4
         shape = (batch, p.nb_symbols + 1, p.nb_carriers)
-        planes = tuple(torch.as_tensor(
-            rng.standard_normal(shape).astype(np.float32), device="cuda")
-            for _ in range(2))
+        planes = random_planes(torch, rng, shape)
         table = mode_table(mode, "cuda")
         got = ofdm_kernel.ofdm_backend(planes, table)
         torch.cuda.synchronize()
@@ -195,8 +256,101 @@ def phase_kernels(torch):
             f"{err:.3e} (tol {tol:.3e})")
         check(err <= tol, f"ofdm_ifft TM {mode}: err {err} > {tol}")
         if mode == 1:
-            tm1 = (planes, table, err)
-    return tm1
+            out["ofdm_ifft"] = (planes, table, err)
+
+        # K2 on the same carriers: clip at 1.2 x the mean magnitude
+        clip = 1.2 * float(torch.sqrt(ref[0] ** 2 + ref[1] ** 2).mean())
+        out_cfr = check_cfr_kernel(torch, f"TM {mode} N={p.spacing} {shape}",
+                                   planes, table, clip, K2_ERROR_CLIP)
+        if mode == 1:
+            out["ofdm_cfr"] = (planes, table, clip, K2_ERROR_CLIP, *out_cfr)
+    out["resample_poly"] = phase_resampler(torch, rng)
+    return out
+
+
+def check_cfr_kernel(torch, tag, planes, table, clip, error_clip):
+    """K2 against its plain version: td within 2e-5*max|ref|, the clip
+    counts per symbol within the threshold margin, the power and MER lanes
+    rtol 1e-4, the pad lane 0.  Returns (max abs err, stats)."""
+    from dabmod_tpu_torch.ops import ofdm_kernel as K
+    (gr, gi), st = K.ofdm_cfr_backend(planes, table, clip, error_clip)
+    torch.cuda.synchronize()
+    (rr, ri), ref_st = K.ofdm_cfr_backend_plain(planes, table, clip,
+                                                error_clip)
+    scale = max(float(rr.abs().max()), float(ri.abs().max()))
+    err = max(float((gr - rr).abs().max()), float((gi - ri).abs().max()))
+    tol = 2e-5 * scale
+    check(bool(torch.isfinite(gr).all() and torch.isfinite(st).all()),
+          f"ofdm_cfr {tag}: not finite")
+    margin = K.cfr_threshold_margin(planes, table, clip, error_clip,
+                                    rel=MARGIN_REL)
+    diffs = []
+    for lane, k in ((K.ST_NCLIP, 0), (K.ST_NERRCLIP, 1)):
+        d = (st[..., lane] - ref_st[..., lane]).abs()
+        check(bool((d <= margin[..., k]).all()),
+              f"ofdm_cfr {tag}: lane {lane} count differs beyond the "
+              f"threshold margin")
+        diffs.append((int(d.sum()), int(margin[..., k].sum()),
+                      int(ref_st[..., lane].sum())))
+    lane_err = 0.0
+    for lane in range(K.ST_POW_BEFORE, K.ST_PAD):
+        r = ref_st[..., lane]
+        rel = float(((st[..., lane] - r).abs()
+                     / r.abs().clamp(min=1e-30)).max())
+        lane_err = max(lane_err, rel)
+    check(lane_err <= 1e-4, f"ofdm_cfr {tag}: stats rtol {lane_err}")
+    check(not bool(st[..., K.ST_PAD].any()), f"ofdm_cfr {tag}: pad lane")
+    log(f"[2] ofdm_cfr {tag}: {3 * table.n * 8} B of dynamic shared memory "
+        f"a block; max abs err {err:.3e} (tol {tol:.3e}); clip counts |diff| {diffs[0][0]} (margin {diffs[0][1]}, of "
+        f"{diffs[0][2]}), error-clip |diff| {diffs[1][0]} (margin "
+        f"{diffs[1][1]}, of {diffs[1][2]}); stats lanes rtol {lane_err:.2e}")
+    check(err <= tol, f"ofdm_cfr {tag}: err {err} > {tol}")
+    return err, st
+
+
+def phase_resampler(torch, rng):
+    """K3 against its plain version on a stream of the main path's length
+    (rtol 1e-5, atol 1e-5*max|ref|: fp32 sums of the band in other
+    orders), and two half-stream calls against one, with the plan the
+    modulator takes at each of RES_RATES."""
+    from dabmod_tpu_torch import tables
+    from dabmod_tpu_torch.config import ModSettings
+    from dabmod_tpu_torch.models.modulator import resampler_plan
+    from dabmod_tpu_torch.ops import resampler_kernel as R
+    n = BATCH_TF * tables.mode_params(1).tf_samples
+    res = None
+    for rate, mode in RES_RATES:
+        plan = resampler_plan(ModSettings(output_rate=rate,
+                                          resampler_mode=mode))
+        table = R.make_table(plan, "cuda")
+        x = random_planes(torch, rng, (n,))
+        carry = random_planes(torch, rng, (2 * plan.half,))
+        got, new_carry = R.resample(x, carry, table)
+        torch.cuda.synchronize()
+        ref, ref_carry = R.resample_plain(x, carry, table)
+        scale = max(float(r.abs().max()) for r in ref)
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        ok = all(bool(torch.allclose(g, r, rtol=1e-5, atol=1e-5 * scale))
+                 for g, r in zip(got, ref))
+        check(all(torch.equal(g, r) for g, r in zip(new_carry, ref_carry)),
+              f"resample_poly {rate}: carry differs")
+        h = n // 2
+        a, mid = R.resample(tuple(v[:h] for v in x), carry, table)
+        b, _ = R.resample(tuple(v[h:] for v in x), mid, table)
+        split = all(torch.equal(torch.cat([u, v]), g)
+                    for u, v, g in zip(a, b, got))
+        smem = 4 * (plan.L * table.n_taps + plan.L + 2 * table.span)
+        log(f"[2] resample_poly {rate / 1e6:g} MS/s ({mode}) L={plan.L} "
+            f"M={plan.M} "
+            f"K={table.n_taps}, {smem} B of dynamic shared memory a block, "
+            f"{n} -> {got[0].shape[0]} samples a plane: "
+            f"max abs err {err:.3e} (rtol 1e-5, atol {1e-5 * scale:.3e}); "
+            f"two half-stream calls equal one: {split}")
+        check(ok, f"resample_poly {rate}: outside rtol 1e-5 / atol")
+        check(split, f"resample_poly {rate}: split stream differs")
+        if rate == 8_192_000:
+            res = (x, carry, table, err)
+    return res
 
 
 def phase_frontend(torch):
@@ -236,13 +390,13 @@ def phase_frontend(torch):
     run(REALISTIC_MUX_SPECS, "e2e_real_", 16, 4)
 
 
-def _settings(fmt):
+def _settings(fmt, **extra):
     from dabmod_tpu_torch.config import ModSettings
     # the batch is the number of ETI frames given to modulate
     if fmt == "f32":
-        return ModSettings(dab_mode=1, device_interleave=False)
-    return ModSettings(dab_mode=1, output="file",
-                       file_output_format="s16").normalise_for_output()
+        return ModSettings(dab_mode=1, device_interleave=False, **extra)
+    return ModSettings(dab_mode=1, output="file", file_output_format="s16",
+                       **extra).normalise_for_output()
 
 
 def _to_host(out):
@@ -251,93 +405,157 @@ def _to_host(out):
     return out.cpu().numpy()
 
 
-def phase_main_path(torch):
-    """Two consecutive batch_tf=24 batches per (ensemble, format) on the
-    card, state carried, against the port on the CPU on the same ETI."""
-    from dabmod_tpu_torch import tables
-    from dabmod_tpu_torch.eti import (REALISTIC_MUX_SPECS, parse_eti_frames,
-                                      synth_eti_batch)
+def _kernels():
+    from dabmod_tpu_torch.ops import ofdm_kernel, resampler_kernel
+    return {"ofdm_ifft": ofdm_kernel.ofdm_backend,
+            "ofdm_cfr": ofdm_kernel.ofdm_cfr_backend,
+            "resample_poly": resampler_kernel.resample}
+
+
+def _paths():
+    from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
+    return {
+        "main": ((("realistic17", REALISTIC_MUX_SPECS),
+                  ("bench2", BENCH_SPECS)), {}, ("ofdm_ifft",)),
+        "realistic17_cfr_8m192": ((("realistic17", REALISTIC_MUX_SPECS),),
+                                  CFR_8M192, ("ofdm_cfr", "resample_poly")),
+        "realistic17_cfr30_3m072": ((("realistic17", REALISTIC_MUX_SPECS),),
+                                    CFR30_3M072,
+                                    ("ofdm_cfr", "resample_poly")),
+    }
+
+
+def phase_paths(torch):
+    """Each path: two consecutive batch_tf=24 batches per (ensemble,
+    format) on the card, state carried, against the port on the CPU on the
+    same ETI.  Returns each kernel's launch count, summed over the card
+    runs of the paths that use it."""
+    from dabmod_tpu_torch.eti import parse_eti_frames, synth_eti_batch
     from dabmod_tpu_torch.models import Modulator, make_default_layout
     from dabmod_tpu_torch.ops import ofdm_kernel
 
-    p = tables.mode_params(1)
-    frames = BATCH_TF * p.cif_count
-    cases = []
-    for name, specs in (("realistic17", REALISTIC_MUX_SPECS),
-                        ("bench2", BENCH_SPECS)):
-        raw = synth_eti_batch(2 * frames, mode=1, subch_specs=specs,
-                              seed=SEED)
-        batches = [parse_eti_frames(raw[:frames]),
-                   parse_eti_frames(raw[frames:])]
-        for fmt in ("f32", "s16"):
-            cases.append((name, specs, fmt, batches))
+    kernels = _kernels()
+    launches = {}
+    for path, (ensembles, extra, used) in _paths().items():
+        cases = []
+        for name, specs in ensembles:
+            frames = BATCH_TF * 4                  # TM I: 4 CIFs a TF
+            raw = synth_eti_batch(2 * frames, mode=1, subch_specs=specs,
+                                  seed=SEED)
+            batches = [parse_eti_frames(raw[:frames]),
+                       parse_eti_frames(raw[frames:])]
+            for fmt in ("f32", "s16"):
+                cases.append((name, specs, fmt, batches))
 
-    def drive(device):
-        outs = {}
-        for name, specs, fmt, batches in cases:
-            m = Modulator(make_default_layout(1, specs), _settings(fmt),
-                          device=device)
-            state = m.init_state()
-            res = []
-            for b in batches:
-                out, state, stats = m.modulate_eti(b, state)
-                res.append((_to_host(out),
-                            {k: int(v) for k, v in stats.items()}))
-            check(int(state["tf_index"]) == 2 * BATCH_TF,
-                  f"{name}/{fmt}: tf_index {int(state['tf_index'])}")
-            outs[(name, fmt)] = res
-        return outs
+        def drive(device):
+            outs, margins = {}, {}
+            for name, specs, fmt, batches in cases:
+                m = Modulator(make_default_layout(1, specs),
+                              _settings(fmt, **extra), device=device)
+                state = m.init_state()
+                res, marg = [], []
+                for b in batches:
+                    if device == "cpu" and m.settings.enable_cfr:
+                        # the samples of the plain CFR at a threshold
+                        syms, _ = m.ofdm_symbols(b.fic, b.subchannels,
+                                                 state["ti_history"])
+                        marg.append(ofdm_kernel.cfr_threshold_margin(
+                            syms, m._ofdm_table, m.settings.cfr_clip,
+                            m.settings.cfr_error_clip,
+                            rel=MARGIN_REL).sum(dim=1).numpy())
+                    out, state, stats = m.modulate_eti(b, state)
+                    res.append((_to_host(out), {k: v.cpu().numpy()
+                                                for k, v in stats.items()}))
+                check(int(state["tf_index"]) == 2 * BATCH_TF,
+                      f"{path}/{name}/{fmt}: tf_index "
+                      f"{int(state['tf_index'])}")
+                outs[(name, fmt)] = (res, m.tf_samples_out)
+                margins[(name, fmt)] = marg
+            return outs, margins
 
-    # the main path on the card, between a reset and a read of the counts
-    ofdm_kernel.ofdm_backend.launches = 0
-    t0 = time.perf_counter()
-    gpu = drive("cuda")
-    torch.cuda.synchronize()
-    launches = {"ofdm_ifft": ofdm_kernel.ofdm_backend.launches}
-    log(f"[4] main path on the card: {len(cases)} x 2 batches in "
-        f"{time.perf_counter() - t0:.1f} s; kernel launches {launches}")
-    check(launches["ofdm_ifft"] > 0, "the main path never launched ofdm_ifft")
+        # the path on the card, between a reset and a read of the counts
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        gpu, _ = drive("cuda")
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in kernels.items()}
+        log(f"[4] {path} on the card: {len(cases)} x 2 batches in "
+            f"{time.perf_counter() - t0:.1f} s; kernel launches {counts}")
+        for k in used:
+            check(counts[k] > 0, f"the {path} path never launched {k}")
+            launches[k] = launches.get(k, 0) + counts[k]
 
-    t0 = time.perf_counter()
-    cpu = drive("cpu")
-    log(f"[4] the same on the CPU (plain versions) in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for name, _specs, fmt, _b in cases:
-        for k, ((g, gs), (c, cs)) in enumerate(zip(gpu[(name, fmt)],
-                                                   cpu[(name, fmt)])):
-            tag = f"{name}/{fmt} batch {k}"
-            if fmt == "f32":
-                for gp, cp in zip(g, c):
-                    check(gp.shape == (BATCH_TF, p.tf_samples)
-                          and gp.dtype == np.float32, f"{tag}: {gp.shape}")
-                    check(bool(np.isfinite(gp).all()), f"{tag}: not finite")
-                scale = max(float(np.abs(x).max()) for x in c)
-                err = max(float(np.abs(a - b).max()) for a, b in zip(g, c))
-                # tests/test_ofdm_kernel.py:88-89: fp32 transform and gain
-                # reductions in different orders
-                tol = 3e-5 * scale
-                log(f"    {tag}: max abs err {err:.3e} (tol {tol:.3e})")
-                check(err <= tol, f"{tag}: err {err} > {tol}")
-            else:
-                check(g.shape == (BATCH_TF, p.tf_samples)
-                      and g.dtype == np.int32, f"{tag}: {g.shape} {g.dtype}")
-                d = np.abs(g.view(np.int16).astype(np.int32)
-                           - c.view(np.int16).astype(np.int32)).max()
-                # within 1 LSB: a float difference at the truncation edge
-                log(f"    {tag}: max int16 diff {d}, num_clipped "
-                    f"{gs['num_clipped']} / {cs['num_clipped']}")
-                check(d <= 1, f"{tag}: int16 diff {d} > 1")
-                check(gs == cs, f"{tag}: num_clipped {gs} != {cs}")
+        t0 = time.perf_counter()
+        cpu, margins = drive("cpu")
+        log(f"[4] the same on the CPU (plain versions) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name, _specs, fmt, _b in cases:
+            (g_res, n_out), (c_res, _) = gpu[(name, fmt)], cpu[(name, fmt)]
+            for k, ((g, gs), (c, cs)) in enumerate(zip(g_res, c_res)):
+                tag = f"{path}/{name}/{fmt} batch {k}"
+                compare_batch(tag, fmt, g, gs, c, cs, n_out,
+                              margins[(name, fmt)][k] if extra else None)
+                if extra.get("cfr_error_clip", np.inf) < 1.0:
+                    check(int(cs["cfr_errclip"].min()) > 0,
+                          f"{tag}: the error clip never acted in a TF")
     return launches
 
 
+def compare_batch(tag, fmt, g, gs, c, cs, n_out, margin):
+    """One batch of the card against the CPU: f32 within 3e-5*max|ref|
+    (tests/test_ofdm_kernel.py:88-89: fp32 transforms and reductions in
+    other orders), s16 within 1 LSB (a float difference at a truncation
+    edge) with equal num_clipped; with CFR the clip counts within the
+    threshold margin, PAPR within 1e-3 dB, MER within 0.1 dB (:96) and
+    mer_valid equal."""
+    check(set(gs) == set(cs), f"{tag}: stats keys {set(gs)} != {set(cs)}")
+    if fmt == "f32":
+        for gp in g:
+            check(gp.shape == (BATCH_TF, n_out) and gp.dtype == np.float32,
+                  f"{tag}: {gp.shape}")
+            check(bool(np.isfinite(gp).all()), f"{tag}: not finite")
+        scale = max(float(np.abs(x).max()) for x in c)
+        err = max(float(np.abs(a - b).max()) for a, b in zip(g, c))
+        tol = 3e-5 * scale
+        log(f"    {tag}: max abs err {err:.3e} (tol {tol:.3e})")
+        check(err <= tol, f"{tag}: err {err} > {tol}")
+    else:
+        check(g.shape == (BATCH_TF, n_out) and g.dtype == np.int32,
+              f"{tag}: {g.shape} {g.dtype}")
+        d = np.abs(g.view(np.int16).astype(np.int32)
+                   - c.view(np.int16).astype(np.int32)).max()
+        log(f"    {tag}: max int16 diff {d}, num_clipped "
+            f"{int(gs['num_clipped'])} / {int(cs['num_clipped'])}")
+        check(d <= 1, f"{tag}: int16 diff {d} > 1")
+        check(int(gs["num_clipped"]) == int(cs["num_clipped"]),
+              f"{tag}: num_clipped differs")
+    if margin is None:
+        return
+    for key, lane in (("cfr_clip", 0), ("cfr_errclip", 1)):
+        d = np.abs(gs[key].astype(np.int64) - cs[key])
+        log(f"    {tag}: {key} {int(gs[key].sum())} / {int(cs[key].sum())},"
+            f" per-TF |diff| max {int(d.max())}, margin sum "
+            f"{int(margin[:, lane].sum())}")
+        check(bool((d <= margin[:, lane]).all()),
+              f"{tag}: {key} differs beyond the threshold margin")
+    for key, atol in (("papr_before_cfr", 1e-3), ("papr_after_cfr", 1e-3),
+                      ("mer_db", 0.1)):
+        d = float(np.abs(gs[key] - cs[key]).max())
+        check(d <= atol, f"{tag}: {key} differs by {d} > {atol}")
+    check(np.array_equal(gs["mer_valid"], cs["mer_valid"]),
+          f"{tag}: mer_valid differs")
+    log(f"    {tag}: PAPR before/after {float(cs['papr_before_cfr'][0]):.3f}"
+        f"/{float(cs['papr_after_cfr'][0]):.3f} dB, MER "
+        f"{float(cs['mer_db'][0]):.2f} dB: within tolerance")
+
+
 def profile_steps(torch, step, n=5) -> dict:
-    """Where one main-path step's time goes: torch.profiler over n steps;
-    device busy time (union of kernel and copy intervals), kernel
-    launches and the host's wall time per step, and the host ops and the
-    kernels that take the most device time.  Informational: where the
-    profiler records no device activity, the device numbers are reported
-    as not measured."""
+    """Where one step's time goes: torch.profiler over n steps; device busy
+    time (union of kernel and copy intervals), kernel launches and the
+    host's wall time per step, and the host ops and the kernels that take
+    the most device time.  Informational: where the profiler records no
+    device activity, the device numbers are reported as not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -390,22 +608,18 @@ def profile_steps(torch, step, n=5) -> dict:
                 [key, us / n / 1e3, count // n] for key, (us, count) in top]}
 
 
-def phase_times(torch, tm1, launches):
-    from dabmod_tpu_torch import tables
-    from dabmod_tpu_torch.eti import (REALISTIC_MUX_SPECS, parse_eti_frames,
-                                      synth_eti_batch)
+def time_path(torch, path, specs, extra):
+    """Step time, host issue time, samples/s at the output rate and the
+    profile of one path on the 17-sub-channel ensemble, f32 and s16."""
+    from dabmod_tpu_torch.eti import parse_eti_frames, synth_eti_batch
     from dabmod_tpu_torch.models import Modulator, make_default_layout
-    from dabmod_tpu_torch.ops import ofdm_kernel
 
-    p = tables.mode_params(1)
-    frames = BATCH_TF * p.cif_count
-    b = parse_eti_frames(synth_eti_batch(frames, mode=1,
-                                         subch_specs=REALISTIC_MUX_SPECS,
-                                         seed=SEED + 1))
-    main = {}
+    b = parse_eti_frames(synth_eti_batch(BATCH_TF * 4, mode=1,
+                                         subch_specs=specs, seed=SEED + 1))
+    rec = {}
     for fmt in ("f32", "s16"):
-        m = Modulator(make_default_layout(1, REALISTIC_MUX_SPECS),
-                      _settings(fmt), device="cuda")
+        m = Modulator(make_default_layout(1, specs), _settings(fmt, **extra),
+                      device="cuda")
         fic = torch.as_tensor(b.fic, device="cuda")
         subs = tuple(torch.as_tensor(x, device="cuda")
                      for x in b.subchannels)
@@ -418,69 +632,179 @@ def phase_times(torch, tm1, launches):
         runs, host = time_runs(torch, step)
         ms = statistics.median(runs)
         q1, _, q3 = statistics.quantiles(runs, n=4)
-        main[fmt] = {"ms_per_step": ms, "ms_per_step_q1_q3": [q1, q3],
-                     "samples_per_s": BATCH_TF * p.tf_samples / (ms / 1e3),
-                     "host_issue_ms_per_step": statistics.median(host)}
-        main[fmt]["profile"] = profile_steps(torch, step)
-    main_rec = {"ensemble": "realistic17", "mode": 1, "batch_tf": BATCH_TF,
-                "samples_per_step": BATCH_TF * p.tf_samples,
-                "inputs": "ETI payload tensors already on the card",
-                **{f"{fmt}_{k}": v for fmt, d in main.items()
-                   for k, v in d.items()},
-                "realtime_x_f32": main["f32"]["samples_per_s"] / 2.048e6,
-                "realtime_x_s16": main["s16"]["samples_per_s"] / 2.048e6}
-    log(f"[5] main path: {json.dumps(main_rec)}")
+        n_out = BATCH_TF * m.tf_samples_out
+        rec.update({
+            f"{fmt}_ms_per_step": ms, f"{fmt}_ms_per_step_q1_q3": [q1, q3],
+            f"{fmt}_samples_per_s": n_out / (ms / 1e3),
+            f"{fmt}_host_issue_ms_per_step": statistics.median(host),
+            f"{fmt}_profile": profile_steps(torch, step)})
+        rate = m.settings.output_rate
+        rec[f"realtime_x_{fmt}"] = rec[f"{fmt}_samples_per_s"] / rate
+    rec = {"path": path, "ensemble": "realistic17", "mode": 1,
+           "batch_tf": BATCH_TF, "output_rate": rate,
+           "samples_per_step_out": n_out,
+           "inputs": "ETI payload tensors already on the card", **rec}
+    log(f"[5] {path}: {json.dumps(rec)}")
+    return rec
 
-    planes, table, err = tm1
+
+def time_ofdm_ifft(torch, planes, table, err, launches):
+    from dabmod_tpu_torch.ops import ofdm_kernel
     B, S, C = planes[0].shape
     n = table.n
     # L2_SETS input sets, cycled: the headline times read their input from
     # device memory; the *_warm_l2 times reuse one set, which may sit in L2
     rng = np.random.default_rng(SEED + 2)
-    sets = [planes] + [tuple(torch.as_tensor(
-        rng.standard_normal(planes[0].shape).astype(np.float32),
-        device="cuda") for _ in range(2)) for _ in range(L2_SETS - 1)]
+    sets = [planes] + [random_planes(torch, rng, planes[0].shape)
+                       for _ in range(L2_SETS - 1)]
     # the yardstick: cuFFT alone on bins gathered ahead of time (no single
     # PyTorch call does the gather and the transform)
-    bins = [torch.complex(x[0].index_select(-1, table.src) * table.valid,
-                          x[1].index_select(-1, table.src) * table.valid)
-            for x in sets]
-    fns = {"": (lambda x: ofdm_kernel.ofdm_backend(x, table), sets),
-           "plain_": (lambda x: ofdm_kernel.ofdm_backend_plain(x, table),
-                      sets),
-           "library_": (lambda x: torch.fft.ifft(x, norm="forward"), bins)}
-    times = {}
-    for key, (fn, inputs) in fns.items():
-        times[key + "ms"] = time_ms(torch, cycled(fn, inputs),
-                                    reps=KERNEL_REPS)
-        times[key + "ms_warm_l2"] = time_ms(
-            torch, lambda fn=fn, x=inputs[0]: fn(x), reps=KERNEL_REPS)
-    ms, plain_ms, library_ms = (times["ms"], times["plain_ms"],
-                                times["library_ms"])
+    bins = [torch.complex(*ofdm_kernel.gather_bins(x, table)) for x in sets]
+    t = kernel_times(torch, {
+        "": (lambda x: ofdm_kernel.ofdm_backend(x, table), sets),
+        "plain_": (lambda x: ofdm_kernel.ofdm_backend_plain(x, table), sets),
+        "library_": (lambda x: torch.fft.ifft(x, norm="forward"), bins)})
     # least work: each carrier read once, each sample written once, the
     # tables read once; 5 N log2 N flop per symbol
-    nbytes = B * S * C * 8 + B * S * n * 8 + n * 8 + (n // 2) * 8
-    flops = 5 * n * table.log2n * B * S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    k1 = {"name": "ofdm_ifft", "route": "cuda",
-          "source": "dabmod_tpu_torch/ops/csrc/ofdm_ifft.cu",
-          "replaces": "dabmod_tpu/ops/ofdm_kernel.py:385",
-          "launches": launches["ofdm_ifft"], "max_abs_err": err,
-          "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": max(t_bytes, t_ops),
-          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-          "library_ms": library_ms,
-          **{k: v for k, v in times.items() if k.endswith("_warm_l2")},
-          "l2_sets": L2_SETS,
-          "shape": [B, S, C, n], "bytes": nbytes, "flops": flops}
-    log(f"[5] ofdm_ifft {B}x{S} symbols, C={C}, N={n}: {ms:.4f} ms "
-        f"(bound {k1['bound_ms']:.4f} ms by {k1['bound_by']}; plain "
-        f"{plain_ms:.4f} ms; torch.fft.ifft alone {library_ms:.4f} ms; "
-        f"one input set reused: {times['ms_warm_l2']:.4f} / "
-        f"{times['plain_ms_warm_l2']:.4f} / "
-        f"{times['library_ms_warm_l2']:.4f} ms)")
-    return [k1]
+    b = bound(B * S * C * 8 + B * S * n * 8 + n * 8 + (n // 2) * 8,
+              5 * n * table.log2n * B * S)
+    k = {"name": "ofdm_ifft", "route": "cuda",
+         "source": "dabmod_tpu_torch/ops/csrc/ofdm_ifft.cu",
+         "replaces": "dabmod_tpu/ops/ofdm_kernel.py:385",
+         "launches": launches, "max_abs_err": err,
+         "ms": t["ms"], "plain_ms": t["plain_ms"],
+         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+         "library_ms": t["library_ms"],
+         "library_call": "torch.fft.ifft on bins gathered beforehand",
+         **{key: v for key, v in t.items() if key.endswith("_warm_l2")},
+         "l2_sets": L2_SETS, "shape": [B, S, C, n],
+         "bytes": b["bytes"], "flops": b["flops"]}
+    log(f"[5] ofdm_ifft {B}x{S} symbols, C={C}, N={n}: {t['ms']:.4f} ms "
+        f"(bound {k['bound_ms']:.4f} ms by {k['bound_by']}; plain "
+        f"{t['plain_ms']:.4f} ms; torch.fft.ifft alone "
+        f"{t['library_ms']:.4f} ms; one input set reused: "
+        f"{t['ms_warm_l2']:.4f} / {t['plain_ms_warm_l2']:.4f} / "
+        f"{t['library_ms_warm_l2']:.4f} ms)")
+    return k
+
+
+def time_ofdm_cfr(torch, planes, table, clip, error_clip, err, stats,
+                  launches):
+    from dabmod_tpu_torch.ops import ofdm_kernel as K
+    B, S, C = planes[0].shape
+    n = table.n
+    rng = np.random.default_rng(SEED + 3)
+    sets = [planes] + [random_planes(torch, rng, planes[0].shape)
+                       for _ in range(L2_SETS - 1)]
+    t = kernel_times(torch, {
+        "": (lambda x: K.ofdm_cfr_backend(x, table, clip, error_clip), sets),
+        "plain_": (lambda x: K.ofdm_cfr_backend_plain(x, table, clip,
+                                                      error_clip), sets)})
+    # least work: carriers read once, samples and statistics written once,
+    # the tables read once; three transforms of 5 N log2 N flop, 27 flop a
+    # sample for the clip, the error update and the sums, and a division
+    # and a square root for each clipped sample and bin of this input
+    n_clip = float(stats[..., K.ST_NCLIP].sum() + stats[..., K.ST_NERRCLIP]
+                   .sum())
+    b = bound(B * S * C * 8 + B * S * n * 8 + B * S * K.STATS * 4
+              + n * 8 + (n // 2) * 8,
+              B * S * (15 * n * table.log2n + 27 * n) + 2 * n_clip)
+    k = {"name": "ofdm_cfr", "route": "cuda",
+         "source": "dabmod_tpu_torch/ops/csrc/ofdm_cfr.cu",
+         "replaces": "dabmod_tpu/ops/ofdm_kernel.py:385 (enable_cfr=True, "
+                     "body :275-320)",
+         "launches": launches, "max_abs_err": err,
+         "ms": t["ms"], "plain_ms": t["plain_ms"],
+         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+         "library_ms": None,
+         "library_call": "none: no single PyTorch call computes the "
+                         "transform, the clips and the statistics",
+         **{key: v for key, v in t.items() if key.endswith("_warm_l2")},
+         "l2_sets": L2_SETS, "shape": [B, S, C, n], "clip": clip,
+         "error_clip": error_clip, "bytes": b["bytes"], "flops": b["flops"]}
+    log(f"[5] ofdm_cfr {B}x{S} symbols, C={C}, N={n}: {t['ms']:.4f} ms "
+        f"(bound {k['bound_ms']:.4f} ms by {k['bound_by']}; plain "
+        f"{t['plain_ms']:.4f} ms; no library call; one input set reused: "
+        f"{t['ms_warm_l2']:.4f} / {t['plain_ms_warm_l2']:.4f} ms)")
+    return k
+
+
+def time_resample(torch, x, carry, table, err, launches):
+    from dabmod_tpu_torch.ops import resampler_kernel as R
+    plan = table.plan
+    n = x[0].shape[0]
+    n_out = n * plan.L // plan.M
+    rng = np.random.default_rng(SEED + 4)
+    sets = [x] + [random_planes(torch, rng, (n,))
+                  for _ in range(RES_L2_SETS - 1)]
+
+    # the yardstick: one cuDNN transposed convolution with stride L and the
+    # plan's prototype filter, re and im as a batch of two; with a zero
+    # carry its first n_out outputs are the resampler's
+    taps = table.taps.cpu().numpy()
+    row0 = table.row0.cpu().numpy()
+    w = np.zeros(2 * plan.half * plan.L + 1, np.float32)
+    for p in range(plan.L):
+        for k in range(table.n_taps):
+            tt = p * plan.M - (row0[p] + k - plan.half) * plan.L
+            if abs(tt) <= plan.half * plan.L:
+                w[tt + plan.half * plan.L] = taps[p, k]
+    weight = torch.as_tensor(w, device="cuda").view(1, 1, -1)
+    stacked = [torch.stack(s).unsqueeze(1) for s in sets]   # [2, 1, n]
+
+    def library(s):
+        return torch.nn.functional.conv_transpose1d(s, weight,
+                                                    stride=plan.L)
+    zero = tuple(torch.zeros_like(c) for c in carry)
+    (yr, yi), _ = R.resample(x, zero, table)
+    z = library(stacked[0])[:, 0, :n_out]
+    scale = float(torch.stack([yr, yi]).abs().max())
+    lib_err = float((z - torch.stack([yr, yi])).abs().max())
+    log(f"[5] conv_transpose1d yardstick against the kernel (zero carry): "
+        f"max abs err {lib_err:.3e} (scale {scale:.3e})")
+    check(lib_err <= 1e-5 * scale, "conv_transpose1d computes another "
+          "function than the resampler")
+
+    t = kernel_times(torch, {
+        "": (lambda s: R.resample(s, carry, table), sets),
+        "plain_": (lambda s: R.resample_plain(s, carry, table), sets),
+        "library_": (library, stacked)})
+    # least work: each input and carry sample read once, each output
+    # written once, the tables read once; 2 flop per non-zero tap of the
+    # band for every output of both planes
+    nnz = int(np.count_nonzero(taps))
+    b = bound(2 * 4 * (n + 2 * plan.half + n_out) + taps.nbytes + row0.nbytes,
+              2 * 2 * (n // plan.M) * nnz)
+    k = {"name": "resample_poly", "route": "cuda",
+         "source": "dabmod_tpu_torch/ops/csrc/resample_poly.cu",
+         "replaces": "dabmod_tpu/ops/resampler_kernel.py:140",
+         "launches": launches, "max_abs_err": err,
+         "ms": t["ms"], "plain_ms": t["plain_ms"],
+         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+         "library_ms": t["library_ms"],
+         "library_call": "torch.nn.functional.conv_transpose1d, stride L, "
+                         "the plan's prototype filter (cuDNN, no TF32)",
+         **{key: v for key, v in t.items() if key.endswith("_warm_l2")},
+         "l2_sets": RES_L2_SETS, "L": plan.L, "M": plan.M,
+         "taps": table.n_taps, "samples_in": n, "samples_out": n_out,
+         "bytes": b["bytes"], "flops": b["flops"]}
+    log(f"[5] resample_poly {n} -> {n_out} samples a plane (L={plan.L}, "
+        f"M={plan.M}): {t['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms by "
+        f"{k['bound_by']}; plain {t['plain_ms']:.4f} ms; conv_transpose1d "
+        f"{t['library_ms']:.4f} ms; one input set reused: "
+        f"{t['ms_warm_l2']:.4f} / {t['plain_ms_warm_l2']:.4f} / "
+        f"{t['library_ms_warm_l2']:.4f} ms)")
+    return k
+
+
+def phase_times(torch, inputs, launches):
+    for path, (ensembles, extra, _used) in _paths().items():
+        time_path(torch, path, ensembles[0][1], extra)
+    return [time_ofdm_ifft(torch, *inputs["ofdm_ifft"],
+                           launches["ofdm_ifft"]),
+            time_ofdm_cfr(torch, *inputs["ofdm_cfr"], launches["ofdm_cfr"]),
+            time_resample(torch, *inputs["resample_poly"],
+                          launches["resample_poly"])]
 
 
 def main():
@@ -498,10 +822,10 @@ def main():
     t_start = time.perf_counter()
 
     card = phase_card_and_build(torch)
-    tm1 = phase_kernels(torch)
+    inputs = phase_kernels(torch)
     phase_frontend(torch)
-    launches = phase_main_path(torch)
-    kernels = phase_times(torch, tm1, launches)
+    launches = phase_paths(torch)
+    kernels = phase_times(torch, inputs, launches)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

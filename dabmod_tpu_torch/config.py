@@ -21,6 +21,7 @@ class ModSettings:
     file_output_format: str = "complexf"
     zmq_output_format: str = "complexf"
     output_rate: int = 2_048_000         # != 2.048 MS/s needs the resampler
+    resampler_mode: str = "auto"         # auto | poly | fft (as dabmod_tpu)
     cic_eq_clock_rate: int = 0
     # modulator
     dab_mode: int = 0                    # 0 = derive from ETI MID
@@ -28,7 +29,10 @@ class ModSettings:
     gain_mode: int = GAIN_VAR
     gain_mode_variance: float = 4.0
     normalise: float = 1.0
+    # CFR
     enable_cfr: bool = False
+    cfr_clip: float = 0.0
+    cfr_error_clip: float = 0.0
     fft_engine: str = "fftw"             # fftw | kiss | dexter
     ofdm_window_overlap: int = 0
     filter_taps_file: str = ""           # "" disables the FIR

@@ -7,14 +7,19 @@ One call modulates a batch of transmission frames:
         fic_bytes, subch_bytes, state)
 
 The mode- and ensemble-dependent tables are built in NumPy at construction
-and held as tensors on the modulator's device.  The only sequential state
-is the time interleaver's 15-CIF history per sub-channel and the TF index,
-a dict of tensors carried from one batch to the next.
+and held as tensors on the modulator's device.  The sequential state is
+the time interleaver's 15-CIF history per sub-channel and the TF index,
+with CFR the rotating MER symbol index, and with the resampler its input
+carry: a dict of tensors carried from one batch to the next.
 
-The main path: TM I-IV, fft_engine=fftw, no CFR, TII, CIC, FIR, resampler
-or DPD, guard-interval overlap 0; f32 (re, im) planes, f32 pairs or s16
-wire words out.  Every other setting raises NotImplementedError naming the
-ROADMAP.md item that ports it.
+The ported paths: TM I-IV, fft_engine=fftw, guard-interval overlap 0, with
+or without one CFR iteration (enable_cfr, with its statistics), at
+2.048 MS/s or through the polyphase resampler to an output rate that
+dabmod_tpu's resampler kernel takes (L/M with M dividing 128: 3.072,
+4.096 and 8.192 MS/s among them, and with resampler_mode="poly" also
+below 2.048 MS/s, such as 1.024 MS/s); no TII, CIC, FIR or DPD;
+f32 (re, im) planes, f32 pairs or s16 wire words out.  Every other setting
+raises NotImplementedError naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
@@ -24,9 +29,11 @@ import torch
 from .. import tables
 from ..config import ModSettings
 from ..eti import EnsembleLayout, EtiFrameBatch
-from ..ops import fec, fft, ofdm, ofdm_kernel
+from ..ops import fec, fft, ofdm, ofdm_kernel, resampler_kernel
 from ..ops.cplx import planes_to_pairs
-from ..ops.filters import pack_s16_planes
+from ..ops.filters import PolyphasePlan, pack_s16_planes
+
+BASE_RATE = 2_048_000        # the modulator's native sample rate
 
 
 def resolve_device(device=None) -> torch.device:
@@ -45,17 +52,39 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to dabmod_tpu_torch yet (ROADMAP {item})")
 
 
-def _check_supported(s: ModSettings):
-    """Reject every setting outside the ported main path."""
+def resampler_plan(s: ModSettings) -> PolyphasePlan | None:
+    """The polyphase plan for s.output_rate, or None at 2.048 MS/s.
+
+    dabmod_tpu's rule (its modulator.py:162-198): resampler_mode "auto"
+    takes the polyphase resampler for output rates above 2.048 MS/s and
+    the frequency-domain one below; its kernel takes a polyphase plan with
+    128-sample frames (M divides 128).  The port has that kernel only:
+    every other choice raises NotImplementedError (ROADMAP A7)."""
+    if s.output_rate == BASE_RATE:
+        return None
+    mode = s.resampler_mode
+    if mode not in ("auto", "poly", "fft"):
+        raise ValueError(f"unknown resampler_mode {mode!r}")
+    if mode == "auto":
+        mode = "poly" if s.output_rate >= BASE_RATE else "fft"
+    what = f"the resampler at output_rate={s.output_rate}"
+    if mode == "fft":
+        raise _not_ported(f"{what} (frequency-domain)", "A7")
+    plan = PolyphasePlan.create(BASE_RATE, s.output_rate)
+    if not resampler_kernel.supports(plan):
+        raise _not_ported(f"{what} (L/M = {plan.L}/{plan.M}: the polyphase "
+                          f"form without the 128-sample kernel)", "A7")
+    return plan
+
+
+def _check_supported(s: ModSettings) -> PolyphasePlan | None:
+    """Reject every setting outside the ported paths; returns the
+    resampler's plan (None at 2.048 MS/s)."""
     if s.fft_engine != "fftw":
         raise _not_ported(f"fft_engine={s.fft_engine}", "A9")
-    if s.enable_cfr:
-        raise _not_ported("CFR (enable_cfr)", "B2")
     if s.tii_enable:
         raise _not_ported("TII (tii_enable)", "A8")
-    if s.output_rate != 2_048_000:
-        raise _not_ported(f"the resampler (output_rate={s.output_rate})",
-                          "B3")
+    plan = resampler_plan(s)
     if s.cic_eq_clock_rate:
         # the same activation rule as dabmod_tpu's CIC taps
         ratio = s.cic_eq_clock_rate // s.output_rate // 4
@@ -70,6 +99,7 @@ def _check_supported(s: ModSettings):
         raise _not_ported(
             f"the windowed guard interval (ofdm_window_overlap="
             f"{s.ofdm_window_overlap})", "A7")
+    return plan
 
 
 def _wire_format(s: ModSettings):
@@ -99,7 +129,7 @@ class Modulator:
                  settings: ModSettings | None = None, device=None):
         self.layout = layout
         self.settings = s = settings or ModSettings()
-        _check_supported(s)
+        res_plan = _check_supported(s)
         fft.set_precision(s.fft_precision)
         self.device = dev = resolve_device(device)
         mode = s.dab_mode if s.dab_mode else layout.dab_mode
@@ -156,18 +186,42 @@ class Modulator:
         self._ofdm_table = ofdm_kernel.make_table(
             self._bin_src_pre, self._bin_valid, dev)
 
+        # --- resampler (the polyphase kernel's table) ---
+        self._res_table = (None if res_plan is None
+                           else resampler_kernel.make_table(res_plan, dev))
+
         self._wire_fmt = _wire_format(s)
+
+    @property
+    def tf_samples_out(self) -> int:
+        """Output samples per transmission frame, at the output rate."""
+        n = self.p.tf_samples
+        if self._res_table is not None:
+            n = n * self._res_table.plan.L // self._res_table.plan.M
+        return n
 
     # ------------------------------------------------------------------
     def init_state(self):
-        """Initial sequential state (a dict carried between batches)."""
-        return {
+        """Initial sequential state (a dict carried between batches): the
+        time-interleaver histories and the TF index; with CFR the rotating
+        MER symbol index, with the resampler its input carry."""
+        dev = self.device
+        state = {
             "ti_history": tuple(
-                torch.zeros((15, n), dtype=fec.BIT_DTYPE, device=self.device)
+                torch.zeros((15, n), dtype=fec.BIT_DTYPE, device=dev)
                 for n in self._subch_ti_bits),
-            "tf_index": torch.zeros((), dtype=torch.int32,
-                                    device=self.device),
+            "tf_index": torch.zeros((), dtype=torch.int32, device=dev),
         }
+        if self.settings.enable_cfr:
+            # ref: src/OfdmGenerator.cpp:198
+            state["mer_index"] = torch.zeros((), dtype=torch.int32,
+                                             device=dev)
+        if self._res_table is not None:
+            h2 = 2 * self._res_table.plan.half
+            state["res_carry"] = tuple(
+                torch.zeros(h2, dtype=torch.float32, device=dev)
+                for _ in range(2))
+        return state
 
     def _bytes(self, x) -> torch.Tensor:
         """ETI payload bytes (numpy or tensor) as uint8 on the device."""
@@ -212,46 +266,119 @@ class Modulator:
         return (tuple(ofdm.freq_interleave(x, self._inv_perm_t)
                       for x in syms), new_hist)
 
-    def _modulate_impl(self, fic_bytes, subch_bytes, state,
-                       constant_gain: float, var_k: float):
+    def _ofdm_symbols_impl(self, fic_bytes, subch_bytes, ti_history):
+        """The front end and the all-zero NULL symbol ahead of each TF:
+        the OFDM backend's input [B, S, C] (interleaver-input order) and
+        the new time-interleaver history."""
         p = self.p
         B = fic_bytes.shape[0] // p.cif_count
         data_syms, new_hist = self._frontend_impl(
-            fic_bytes, subch_bytes, state["ti_history"])     # [B, 76, C]
-
-        # the all-zero NULL symbol ahead of each TF
+            fic_bytes, subch_bytes, ti_history)               # [B, 76, C]
         zero = torch.zeros((B, 1, p.nb_carriers), dtype=torch.float32,
                            device=self.device)
-        symbols = tuple(torch.cat([zero, d], dim=1) for d in data_syms)
+        return tuple(torch.cat([zero, d], dim=1) for d in data_syms), new_hist
 
-        # the hand-written OFDM kernel on the card (the plain version on
-        # the CPU): composed carrier->bin gather + IFFT
-        td = ofdm_kernel.ofdm_backend(symbols, self._ofdm_table)
+    def ofdm_symbols(self, fic_bytes, subch_bytes, ti_history):
+        """The OFDM backend's input for one batch (for stage-level
+        validation): symbol planes [B, S, C] in interleaver-input order,
+        NULL symbol included, and the new time-interleaver history."""
+        with torch.no_grad():
+            return self._ofdm_symbols_impl(
+                self._bytes(fic_bytes),
+                tuple(self._bytes(x) for x in subch_bytes), ti_history)
 
-        gains = ofdm.compute_gain(td, self.settings.gain_mode,
-                                  var_k) * constant_gain
-        iq = ofdm.guard_interval_unwindowed(td, p.null_size, p.sym_size,
-                                            gains=gains)      # planes [B, tf]
+    def _cfr_stats(self, kstats, mer_index):
+        """Batch statistics from the CFR kernel's per-symbol lanes
+        (dabmod_tpu's modulator.py:571-628): clip counts and PAPR before and
+        after CFR over the data symbols (the all-zero NULL symbol is
+        excluded), and the in-loop MER (ETSI ETR 290 Annex C) of one
+        rotating symbol per TF: TF b inspects symbol (mer_index + 1 + b)
+        mod S, and symbol 0 (NULL) gives no measurement
+        (ref: src/OfdmGenerator.cpp:234-273).  Returns (stats, the next
+        mer_index)."""
+        B, S, _ = kstats.shape
+        K = ofdm_kernel
+        n_data = (S - 1) * self.p.spacing
+        stats = {
+            "cfr_clip": kstats[..., K.ST_NCLIP].sum(dim=1).to(torch.int32),
+            "cfr_errclip": kstats[..., K.ST_NERRCLIP].sum(dim=1).to(
+                torch.int32),
+        }
+        for key, pk, pw in (("papr_before_cfr", K.ST_PEAK_BEFORE,
+                             K.ST_POW_BEFORE),
+                            ("papr_after_cfr", K.ST_PEAK_AFTER,
+                             K.ST_POW_AFTER)):
+            peak = kstats[:, 1:, pk].amax(dim=1)
+            mean = kstats[:, 1:, pw].sum(dim=1) / n_data
+            stats[key] = 10.0 * torch.log10(peak / mean)
+        rows = torch.arange(B, device=kstats.device)
+        mer_idx = (mer_index + 1 + rows) % S
+        num = kstats[rows, mer_idx, K.ST_POW_BEFORE]
+        den = kstats[rows, mer_idx, K.ST_MER_DEN]
+        mer = torch.where(
+            den > 0, 10.0 * torch.log10(num / torch.clamp(den, min=1e-30)),
+            90.0)                                   # clamp, ref :269-271
+        stats["mer_db"] = torch.clamp(mer, max=90.0)
+        stats["mer_valid"] = mer_idx > 0
+        return stats, ((mer_index + B) % S).to(torch.int32)
+
+    def _modulate_impl(self, fic_bytes, subch_bytes, state,
+                       constant_gain: float, var_k: float):
+        p = self.p
+        s = self.settings
+        symbols, new_hist = self._ofdm_symbols_impl(
+            fic_bytes, subch_bytes, state["ti_history"])      # [B, S, C]
+        B = symbols[0].shape[0]
         new_state = {"ti_history": new_hist,
                      "tf_index": state["tf_index"] + B}
+        stats = {}
+
+        # the hand-written OFDM kernels on the card (the plain versions on
+        # the CPU): composed carrier->bin gather + IFFT, and with CFR one
+        # clip / error-clip iteration and its per-symbol statistics
+        if s.enable_cfr:
+            td, kstats = ofdm_kernel.ofdm_cfr_backend(
+                symbols, self._ofdm_table, s.cfr_clip, s.cfr_error_clip)
+            stats, new_state["mer_index"] = self._cfr_stats(
+                kstats, state["mer_index"])
+        else:
+            td = ofdm_kernel.ofdm_backend(symbols, self._ofdm_table)
+
+        gains = ofdm.compute_gain(td, s.gain_mode, var_k) * constant_gain
+        iq = ofdm.guard_interval_unwindowed(td, p.null_size, p.sym_size,
+                                            gains=gains)      # planes [B, tf]
+
+        if self._res_table is not None:
+            # the polyphase resampler on the flat stream; its carry links
+            # one batch to the next
+            flat, carry = resampler_kernel.resample(
+                tuple(x.reshape(-1) for x in iq), state["res_carry"],
+                self._res_table)
+            iq = tuple(x.reshape(B, -1) for x in flat)
+            new_state["res_carry"] = carry
 
         if self._wire_fmt == "s16":
             # packed int32 words, byte-identical to interleaved s16 pairs
-            out, n_clip = pack_s16_planes(iq[0], iq[1])
-            return out, new_state, {"num_clipped": n_clip}
-        if not self.settings.device_interleave:
-            return iq, new_state, {}
-        return planes_to_pairs(iq), new_state, {}
+            out, stats["num_clipped"] = pack_s16_planes(iq[0], iq[1])
+            return out, new_state, stats
+        if not s.device_interleave:
+            return iq, new_state, stats
+        return planes_to_pairs(iq), new_state, stats
 
     def modulate(self, fic_bytes, subch_bytes, state):
         """Run one batch.  fic_bytes [T, fic_len] uint8, subch_bytes tuple of
         [T, framesize] uint8 with T a multiple of cif_count (numpy arrays or
         tensors).  Returns (output, new_state, stats):
 
-        * f32 planes (re, im) [B, tf_samples] with device_interleave=False;
-        * f32 pairs [B, tf_samples, 2] with device_interleave=True;
-        * int32 s16 wire words [B, tf_samples] for an s16 output, with
+        * f32 planes (re, im) [B, tf_samples_out] with
+          device_interleave=False;
+        * f32 pairs [B, tf_samples_out, 2] with device_interleave=True;
+        * int32 s16 wire words [B, tf_samples_out] for an s16 output, with
           stats["num_clipped"].
+
+        With CFR, stats also holds per TF [B]: "cfr_clip" and "cfr_errclip"
+        (int32 counts), "papr_before_cfr", "papr_after_cfr" and "mer_db"
+        (float32 dB) and "mer_valid" (bool).
         """
         fic = self._bytes(fic_bytes)
         if fic.shape[0] % self.p.cif_count:
@@ -274,17 +401,29 @@ class Modulator:
 def state_from_numpy(state_np, device) -> dict:
     """The JAX modulator's state as the port's: `state_np` holds
     "ti_history" (a tuple of [15, n] {0,1} arrays, one per sub-channel) and
-    "tf_index", as numpy arrays (np.asarray of dabmod_tpu's state).  With
-    the tables both packages build, this is all that makes them compute
-    the same signal from the same point of a stream."""
+    "tf_index", and with CFR "mer_index", with the polyphase resampler
+    "res_carry" (a (re, im) tuple of [2*half] float32 arrays), as numpy
+    arrays (np.asarray of dabmod_tpu's state).  With the tables both
+    packages build, this is all that makes them compute the same signal
+    from the same point of a stream."""
     device = resolve_device(device)
-    return {
+
+    def scalar(key):
+        return torch.tensor(int(np.asarray(state_np[key])),
+                            dtype=torch.int32, device=device)
+    state = {
         "ti_history": tuple(
             torch.as_tensor(np.asarray(h).astype(np.uint8), device=device)
             for h in state_np["ti_history"]),
-        "tf_index": torch.tensor(int(np.asarray(state_np["tf_index"])),
-                                 dtype=torch.int32, device=device),
+        "tf_index": scalar("tf_index"),
     }
+    if "mer_index" in state_np:
+        state["mer_index"] = scalar("mer_index")
+    if "res_carry" in state_np:
+        state["res_carry"] = tuple(
+            torch.tensor(np.asarray(c), dtype=torch.float32, device=device)
+            for c in state_np["res_carry"])
+    return state
 
 
 def make_default_layout(mode: int = 1,

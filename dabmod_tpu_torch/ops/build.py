@@ -1,15 +1,18 @@
-"""Build the port's CUDA source (ops/csrc/ofdm_ifft.cu) into a shared library
-with a plain C interface, and load it with ctypes.
+"""Build the port's CUDA sources (ops/csrc/*.cu) into shared libraries with a
+plain C interface, and load them with ctypes.
 
-The source compiles with nvcc into dabmod_tpu_torch/_build/ (listed in
-.gitignore).  The library's file name carries a hash of its source and
-flags, so an edited source builds anew and an unchanged one is reused.
-Nothing builds at import: the first launch of the kernel builds it, or a
-caller runs build() ahead of time.
+Each source compiles with its own nvcc run into dabmod_tpu_torch/_build/
+(listed in .gitignore).  A library's file name carries a hash of its
+source, of every header in csrc/ (*.cuh, which any source may include) and
+of the flags, so an edited source or header builds anew and an unchanged
+one is reused.  Nothing builds at import: the first launch of a kernel
+builds its library, or a caller runs build() ahead of time, which starts
+one nvcc per source, all at once.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -18,6 +21,7 @@ import threading
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC_DIR)), "_build")
+SOURCES = ("ofdm_ifft", "ofdm_cfr", "resample_poly")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,34 +46,52 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read())
+    """The library of csrc/<name>.cu, named by the hash of the source, the
+    csrc/ headers and the flags."""
+    digest = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in [os.path.join(CSRC_DIR, name + ".cu"), *headers]:
+        digest.update(os.path.basename(path).encode() + b"\0")
+        with open(path, "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build(name: str = "ofdm_ifft") -> str:
-    """Compile csrc/<name>.cu unless it is built already; returns the
-    library's path.  The compiler's output (with -Xptxas -v: registers and
-    shared memory per kernel) is kept beside the library as <library>.log."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return out
+def build(*names: str) -> list[str]:
+    """Compile csrc/<name>.cu for each name (default: every source) unless
+    it is built already, one nvcc process per source, all started
+    together; returns the libraries' paths in the order of `names`.  Each
+    compiler's output (with -Xptxas -v: registers and shared memory per
+    kernel) is kept beside its library as <library>.log."""
+    names = names or SOURCES
+    outs = [library_path(name) for name in names]
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-         os.path.join(CSRC_DIR, name + ".cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    log = proc.stdout.decode(errors="replace")
-    with open(out + ".log", "w") as f:
-        f.write(log)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"CUDA build of {name}.cu failed (nvcc exit {proc.returncode}):\n"
-            f"{log}")
-    os.replace(tmp, out)
-    return out
+    nvcc = None
+    running = []
+    for name, out in zip(names, outs):
+        if os.path.exists(out):
+            continue
+        nvcc = nvcc or find_nvcc()
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp,
+             os.path.join(CSRC_DIR, name + ".cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        running.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in running:
+        log = proc.communicate()[0].decode(errors="replace")
+        with open(out + ".log", "w") as f:
+            f.write(log)
+        if proc.returncode != 0:
+            failed.append(f"CUDA build of {name}.cu failed (nvcc exit "
+                          f"{proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -77,6 +99,19 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
+            lib = ctypes.CDLL(build(name)[0])
             _LIBS[name] = lib
         return lib
+
+
+def launcher(name: str, symbol: str, n_pointers: int, *scalars):
+    """The C launch function `symbol` of csrc/<name>.cu, declared as taking
+    `n_pointers` device pointers, then the ctypes `scalars`, then the
+    stream, and returning a CUDA error code (0 = launched).  Pointers and
+    the stream are c_void_p: ctypes would pass a bare Python int as a
+    32-bit int and cut it."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + list(scalars)
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn

@@ -24,7 +24,8 @@
 // them through the index table straight into bit-reversed bin order in a
 // second shared buffer (a 2048-point complex symbol is 16 KB), runs an
 // iterative radix-2 decimation-in-time transform there, and writes the
-// natural-order samples once, coalesced.  The bins never go to device
+// natural-order samples once, coalesced (the stages live in
+// fft_radix2.cuh, shared with ofdm_cfr.cu).  The bins never go to device
 // memory, so there is no separate gather pass; device memory sees each
 // input byte read once and each output byte written once.  The twiddles
 // exp(+2*pi*i*m/N), m < N/2, are computed on the host in float64 and stored
@@ -32,6 +33,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fft_radix2.cuh"
 
 namespace {
 
@@ -51,7 +54,6 @@ ofdm_ifft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   __shared__ float2 buf[1 << kMaxLog2N];
 
   const int n = 1 << log2n;
-  const int half_n = n >> 1;
   const size_t sym = blockIdx.x;
 
   // 1. this symbol's carriers, coalesced, into shared memory
@@ -64,35 +66,18 @@ ofdm_ifft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   __syncthreads();
 
   // 2. composed gather: bin k lands at bit-reversed position bitrev(k)
-  const int rshift = 32 - log2n;
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
     float2 v = make_float2(0.f, 0.f);
     if (valid[k] != 0.f) {
       const int s = src[k];
       v = make_float2(car_r[s], car_i[s]);
     }
-    buf[__brev(static_cast<unsigned>(k)) >> rshift] = v;
+    buf[dabmod::bitrev_index(k, log2n)] = v;
   }
   __syncthreads();
 
   // 3. radix-2 DIT butterflies, in place: bit-reversed in, natural out
-  for (int s = 0; s < log2n; ++s) {
-    const int h = 1 << s;              // half the size of this stage's groups
-    const int tw_step = half_n >> s;   // N / (2h)
-    for (int b = threadIdx.x; b < half_n; b += blockDim.x) {
-      const int j = b & (h - 1);
-      const int i0 = ((b >> s) << (s + 1)) + j;
-      const int i1 = i0 + h;
-      const float2 w = twiddle[j * tw_step];
-      const float2 a = buf[i0];
-      const float2 c = buf[i1];
-      const float tr = c.x * w.x - c.y * w.y;
-      const float ti = c.x * w.y + c.y * w.x;
-      buf[i0] = make_float2(a.x + tr, a.y + ti);
-      buf[i1] = make_float2(a.x - tr, a.y - ti);
-    }
-    __syncthreads();
-  }
+  dabmod::dit_inverse_stages(buf, twiddle, log2n);
 
   // 4. natural-order time samples, coalesced
   float* qr = yr + sym * n;

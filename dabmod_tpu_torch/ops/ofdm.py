@@ -1,6 +1,6 @@
 """OFDM-side ops on tensors (port of dabmod_tpu/ops/ofdm.py, main path):
-QPSK mapping, frequency interleaving, pi/4-DQPSK, bin mapping, gain
-control and guard-interval insertion.
+QPSK mapping, frequency interleaving, pi/4-DQPSK, bin mapping, crest factor
+reduction, gain control and guard-interval insertion.
 
 Every constellation point entering the differential modulator is an
 eighth-turn phasor exp(i*pi/4*q), so the reference's complex product chain
@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..config import GAIN_FIX, GAIN_MAX, GAIN_VAR
-from .fft import ifft_planes
+from .fft import fft_planes, ifft_planes
 
 # sqrt(1/2) as float32: the value of the odd (diagonal) constellation points
 _HALF = float(np.float32(np.sqrt(0.5)))
@@ -98,6 +98,57 @@ def ofdm_ifft(bins):
     """Unnormalised backward transform matching FFTW_BACKWARD
     (ref: src/OfdmGenerator.cpp:109-111, 228)."""
     return ifft_planes(bins)
+
+
+def f32_square(limit: float) -> float:
+    """limit**2 as dabmod_tpu's comparisons see it: the Python double
+    product rounded to float32 (a weakly typed scalar against a float32
+    array).  Exactly representable in float32, so every comparison and
+    division below gives the same result in float32 or float64."""
+    return float(np.float32(limit * limit))
+
+
+def amp_clip(symbols, limit: float):
+    """Scale (re, im) samples whose magnitude exceeds `limit` back onto it;
+    returns (clipped planes, over mask).  All-zero samples keep scale 1."""
+    lim2 = f32_square(limit)
+    mag_sq = symbols[0] * symbols[0] + symbols[1] * symbols[1]
+    over = mag_sq > lim2
+    # a true division: `float / tensor` would multiply by the reciprocal
+    num = torch.tensor(lim2, dtype=mag_sq.dtype, device=mag_sq.device)
+    scale = torch.where(
+        over, torch.sqrt(num / torch.where(mag_sq > 0, mag_sq, 1.0)), 1.0)
+    return tuple(x * scale for x in symbols), over
+
+
+def cfr_clip(symbols, clip: float):
+    """Clip plane samples to amplitude `clip`; returns (clipped, n_clipped)
+    with the count summed over the last two axes."""
+    clipped, over = amp_clip(symbols, clip)
+    return clipped, over.sum(dim=(-2, -1), dtype=torch.int32)
+
+
+def cfr_correct(symbols, reference_bins, clip: float, error_clip: float):
+    """One crest-factor-reduction iteration over [..., S, spacing] planes
+    (ref: src/OfdmGenerator.cpp:310-373): clip, forward transform scaled by
+    1/N, the error against the reference bins clipped to `error_clip`,
+    inverse transform.  Returns (out planes, clip mask, error-clip mask)."""
+    n = symbols[0].shape[-1]
+    clipped, over = amp_clip(symbols, clip)
+    sr, si = fft_planes(clipped)
+    sr, si = sr * (1.0 / n), si * (1.0 / n)
+    err = (reference_bins[0] - sr, reference_bins[1] - si)
+    err_clipped, over_e = amp_clip(err, error_clip)
+    return ifft_planes((sr + err_clipped[0], si + err_clipped[1])), over, over_e
+
+
+def cfr_one_iteration(symbols, reference_bins, clip: float,
+                      error_clip: float):
+    """cfr_correct with the clip counts summed over the last two axes, as
+    dabmod_tpu.ops.ofdm.cfr_one_iteration returns them."""
+    out, over, over_e = cfr_correct(symbols, reference_bins, clip, error_clip)
+    return (out, over.sum(dim=(-2, -1), dtype=torch.int32),
+            over_e.sum(dim=(-2, -1), dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------

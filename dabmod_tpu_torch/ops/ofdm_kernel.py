@@ -1,17 +1,23 @@
-"""The OFDM IFFT backend: a hand-written CUDA kernel for Hopper
-(csrc/ofdm_ifft.cu) and its plain PyTorch version.
+"""The OFDM backends: hand-written CUDA kernels for Hopper and their plain
+PyTorch versions.
 
-It replaces dabmod_tpu/ops/ofdm_kernel.py::build_ofdm_backend with
-enable_cfr=False and carrier_map set, the Pallas kernel on the TPU
-package's main path.  Carrier-order symbol planes [B, S, C] go in; one
-composed static gather places each carrier in its bin (the bin map of
-ops.ofdm.to_bins_slices composed with the deferred frequency-interleave
-permutation) and zeroes the empty bins; then the unnormalised backward DFT
-(FFTW_BACKWARD) of size N gives natural-order time samples [B, S, N].
+They replace dabmod_tpu/ops/ofdm_kernel.py::build_ofdm_backend with
+carrier_map set, the Pallas kernel of the TPU package.  Carrier-order
+symbol planes [B, S, C] go in; one composed static gather places each
+carrier in its bin (the bin map of ops.ofdm.to_bins_slices composed with
+the deferred frequency-interleave permutation) and zeroes the empty bins;
+then the unnormalised backward DFT (FFTW_BACKWARD) of size N gives
+natural-order time samples [B, S, N].
 
-`ofdm_backend` launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors.  The CUDA source's header gives the kernel's
-design and what bounds it on the card.
+* `ofdm_backend` (enable_cfr=False; csrc/ofdm_ifft.cu): the transform.
+* `ofdm_cfr_backend` (enable_cfr=True; csrc/ofdm_cfr.cu): the transform,
+  one crest-factor-reduction iteration (ops.ofdm.cfr_correct) and the
+  per-symbol statistics [B, S, 8] in the ST_* lanes of dabmod_tpu.
+
+Each launches its kernel for CUDA tensors, counts the launch in its
+`launches` attribute, and takes its plain version only for CPU tensors.
+The CUDA sources' headers give each kernel's design and what bounds it on
+the card.
 """
 from __future__ import annotations
 
@@ -23,10 +29,16 @@ import numpy as np
 import torch
 
 from . import build
-from .fft import ifft_planes
+from .fft import fft_planes, ifft_planes
+from .ofdm import amp_clip, cfr_correct, f32_square
 
 MAX_CARRIERS = 1536      # the kernel's shared-memory carrier buffer (TM I)
 MAX_SPACING = 2048       # the kernel's shared-memory bin buffer (TM I)
+
+# per-symbol statistics lanes of ofdm_cfr_backend (dabmod_tpu's ST_*)
+ST_NCLIP, ST_NERRCLIP, ST_POW_BEFORE, ST_PEAK_BEFORE, \
+    ST_POW_AFTER, ST_PEAK_AFTER, ST_MER_DEN, ST_PAD = range(8)
+STATS = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,29 +79,70 @@ def make_table(bin_src, bin_valid, device) -> OfdmTable:
         torch.as_tensor(twiddle, device=device))
 
 
+def gather_bins(planes, table: OfdmTable):
+    """Carrier-order planes [B, S, C] -> natural-order bins [B, S, N]
+    (index_select x mask)."""
+    return tuple(x.index_select(-1, table.src) * table.valid for x in planes)
+
+
 def ofdm_backend_plain(planes, table: OfdmTable):
-    """Plain PyTorch version: the same gather (index_select x mask), then
-    torch.fft.ifft with norm="forward" (no 1/N: FFTW_BACKWARD)."""
-    return ifft_planes(tuple(x.index_select(-1, table.src) * table.valid
-                             for x in planes))
+    """Plain PyTorch version: gather_bins, then torch.fft.ifft with
+    norm="forward" (no 1/N: FFTW_BACKWARD)."""
+    return ifft_planes(gather_bins(planes, table))
 
 
-@functools.cache
-def _launcher():
-    fn = build.load("ofdm_ifft").dabmod_ofdm_ifft
-    # every pointer and the stream as c_void_p: ctypes would pass a bare
-    # Python int as a 32-bit int and cut it
-    fn.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _pabs2(x):
+    return x[0] * x[0] + x[1] * x[1]
 
 
-def ofdm_backend(planes, table: OfdmTable):
-    """Carrier-order planes [B, S, C] -> time-domain planes [B, S, N].
+def ofdm_cfr_backend_plain(planes, table: OfdmTable, clip: float,
+                           error_clip: float):
+    """Plain PyTorch version of ofdm_cfr_backend: gather_bins, the
+    transform, ops.ofdm.cfr_correct, and the ST_* reductions per symbol."""
+    bins = gather_bins(planes, table)
+    x = ifft_planes(bins)
+    out, over, over_e = cfr_correct(x, bins, clip, error_clip)
+    pow_before = _pabs2(x)
+    pow_after = _pabs2(out)
+    f32 = torch.float32
+    stats = torch.stack([
+        over.sum(dim=-1, dtype=f32),
+        over_e.sum(dim=-1, dtype=f32),
+        pow_before.sum(dim=-1),
+        pow_before.amax(dim=-1),
+        pow_after.sum(dim=-1),
+        pow_after.amax(dim=-1),
+        _pabs2((out[0] - x[0], out[1] - x[1])).sum(dim=-1),
+        torch.zeros_like(pow_before[..., 0]),
+    ], dim=-1)
+    return out, stats
 
-    CUDA tensors launch the kernel (and count the launch in
-    `ofdm_backend.launches`); CPU tensors take ofdm_backend_plain."""
+
+def cfr_threshold_margin(planes, table: OfdmTable, clip: float,
+                         error_clip: float, rel: float = 1e-5):
+    """How many samples of the plain CFR sit at a threshold: int32
+    [B, S, 2], per symbol the samples whose |x|^2 lies within `rel`
+    (relative) of clip^2 and the bins whose |e|^2 lies within `rel` of
+    error_clip^2.  Two fp32 computations of the same symbol that sum in
+    other orders may decide those samples differently, so their clip
+    counts may differ by up to this many."""
+    bins = gather_bins(planes, table)
+    x = ifft_planes(bins)
+    clipped, _ = amp_clip(x, clip)
+    sr, si = fft_planes(clipped)
+    n = table.n
+    err = (bins[0] - sr * (1.0 / n), bins[1] - si * (1.0 / n))
+
+    def near(v, limit):
+        lim2 = f32_square(limit)
+        return ((_pabs2(v) - lim2).abs() <= rel * lim2).sum(dim=-1)
+    near_clip, near_err = near(x, clip), near(err, error_clip)
+    return torch.stack([near_clip, near_err], dim=-1).to(torch.int32)
+
+
+def _check_planes(planes, table: OfdmTable):
+    """The checks both wrappers make; True when the planes lie on the
+    CPU (take the plain version)."""
     re, im = planes
     if re.dim() != 3 or re.shape != im.shape:
         raise ValueError(f"expected two [B, S, C] planes, got "
@@ -103,12 +156,35 @@ def ofdm_backend(planes, table: OfdmTable):
         raise ValueError(f"planes on {re.device}/{im.device}, table on "
                          f"{table.src.device}")
     if re.device.type == "cpu":
-        return ofdm_backend_plain(planes, table)
+        return True
     if re.device.type != "cuda":
         raise ValueError(f"unsupported device {re.device}")
     if not (re.is_contiguous() and im.is_contiguous()):
         raise ValueError("planes must be contiguous")
+    return False
 
+
+@functools.cache
+def _launcher():
+    return build.launcher("ofdm_ifft", "dabmod_ofdm_ifft", 7,
+                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int)
+
+
+@functools.cache
+def _cfr_launcher():
+    return build.launcher("ofdm_cfr", "dabmod_ofdm_cfr", 8,
+                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_float)
+
+
+def ofdm_backend(planes, table: OfdmTable):
+    """Carrier-order planes [B, S, C] -> time-domain planes [B, S, N].
+
+    CUDA tensors launch the kernel (and count the launch in
+    `ofdm_backend.launches`); CPU tensors take ofdm_backend_plain."""
+    if _check_planes(planes, table):
+        return ofdm_backend_plain(planes, table)
+    re, im = planes
     B, S, C = re.shape
     out_r = torch.empty((B, S, table.n), dtype=torch.float32,
                         device=re.device)
@@ -128,3 +204,39 @@ def ofdm_backend(planes, table: OfdmTable):
 
 
 ofdm_backend.launches = 0
+
+
+def ofdm_cfr_backend(planes, table: OfdmTable, clip: float,
+                     error_clip: float):
+    """Carrier-order planes [B, S, C] -> (time-domain planes [B, S, N]
+    after one CFR iteration, statistics float32 [B, S, STATS]).
+
+    CUDA tensors launch the kernel (and count the launch in
+    `ofdm_cfr_backend.launches`); CPU tensors take ofdm_cfr_backend_plain.
+    The thresholds reach the kernel as clip**2 and error_clip**2 rounded
+    to float32, the values dabmod_tpu compares with."""
+    if _check_planes(planes, table):
+        return ofdm_cfr_backend_plain(planes, table, clip, error_clip)
+    re, im = planes
+    B, S, C = re.shape
+    out_r = torch.empty((B, S, table.n), dtype=torch.float32,
+                        device=re.device)
+    out_i = torch.empty_like(out_r)
+    stats = torch.empty((B, S, STATS), dtype=torch.float32, device=re.device)
+    if B * S == 0:
+        return (out_r, out_i), stats
+    launch = _cfr_launcher()
+    with torch.cuda.device(re.device):
+        err = launch(re.data_ptr(), im.data_ptr(), table.src.data_ptr(),
+                     table.valid.data_ptr(), table.twiddle.data_ptr(),
+                     out_r.data_ptr(), out_i.data_ptr(), stats.data_ptr(),
+                     B * S, C, table.log2n, f32_square(clip),
+                     f32_square(error_clip),
+                     torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ofdm_cfr kernel launch failed: CUDA error {err}")
+    ofdm_cfr_backend.launches += 1
+    return (out_r, out_i), stats
+
+
+ofdm_cfr_backend.launches = 0

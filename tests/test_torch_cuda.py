@@ -10,9 +10,14 @@ installed:
 (DABMOD_TEST_ON_TPU=1 keeps tests/conftest.py from importing JAX.)
 
 Tolerances: fp32 transforms summed in other orders, atol 2e-5*max|ref| for
-the kernel (tests/test_ofdm_kernel.py:31-32) and 3e-5*max|ref| through the
-modulator (:88-89); s16 words within 1 LSB with equal clip counts.  TF32
-is off.
+the OFDM kernels (tests/test_ofdm_kernel.py:31-32) and 3e-5*max|ref|
+through the modulator (:88-89); s16 words within 1 LSB with equal clip
+counts.  CFR clip counts may differ from the plain version's by the
+samples that lie within 1e-5 (relative) of a threshold
+(ofdm_kernel.cfr_threshold_margin), where fp32 sums in other orders may
+fall either side; the power lanes rtol 1e-4.  The resampler within rtol
+1e-5, atol 1e-5*max|ref| (fp32 sums of the band, 33 or 65 taps, in other
+orders).  TF32 is off.
 """
 import numpy as np
 import pytest
@@ -22,7 +27,8 @@ from dabmod_tpu_torch import tables
 from dabmod_tpu_torch.config import ModSettings
 from dabmod_tpu_torch.eti import parse_eti_frames, synth_eti_batch
 from dabmod_tpu_torch.models import Modulator, make_default_layout
-from dabmod_tpu_torch.ops import ofdm_kernel
+from dabmod_tpu_torch.ops import ofdm_kernel, resampler_kernel
+from dabmod_tpu_torch.ops.filters import PolyphasePlan
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -60,33 +66,132 @@ def test_ofdm_kernel_matches_plain(card, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_ofdm_cfr_kernel_matches_plain(card, mode):
+    src, valid = tables.bin_map(mode)
+    table = ofdm_kernel.make_table(tables.freq_interleave_inverse(mode)[src],
+                                   valid, card)
+    rng = np.random.default_rng(10 + mode)
+    shape = (3, 11, tables.mode_params(mode).nb_carriers)
+    x = tuple(torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                              device=card) for _ in range(2))
+    x[0][0, 0] = 0.0            # an all-zero (NULL) symbol
+    x[1][0, 0] = 0.0
+    td = ofdm_kernel.ofdm_backend_plain(x, table)
+    clip = 1.2 * float(torch.sqrt(td[0] ** 2 + td[1] ** 2).mean())
+    before = ofdm_kernel.ofdm_cfr_backend.launches
+    got, st = ofdm_kernel.ofdm_cfr_backend(x, table, clip, 0.5)
+    torch.cuda.synchronize()
+    assert ofdm_kernel.ofdm_cfr_backend.launches == before + 1
+    ref, ref_st = ofdm_kernel.ofdm_cfr_backend_plain(x, table, clip, 0.5)
+    scale = float(ref[0].abs().max())
+    for g, r in zip(got, ref):
+        assert g.device.type == "cuda" and g.shape == (3, 11, table.n)
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   atol=2e-5 * scale)
+    st, ref_st = st.cpu().numpy(), ref_st.cpu().numpy()
+    margin = ofdm_kernel.cfr_threshold_margin(x, table, clip, 0.5)
+    margin = margin.cpu().numpy()
+    for lane, k in ((ofdm_kernel.ST_NCLIP, 0), (ofdm_kernel.ST_NERRCLIP, 1)):
+        assert (np.abs(st[..., lane] - ref_st[..., lane])
+                <= margin[..., k]).all()
+    for lane in range(ofdm_kernel.ST_POW_BEFORE, ofdm_kernel.ST_PAD):
+        np.testing.assert_allclose(st[..., lane], ref_st[..., lane],
+                                   rtol=1e-4)
+    assert not st[0, 0].any() and not st[..., ofdm_kernel.ST_PAD].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [4_096_000, 8_192_000, 3_072_000,
+                                  1_024_000])      # L/M = 2, 4, 3/2, 1/2
+def test_resampler_kernel_matches_plain(card, rate):
+    plan = PolyphasePlan.create(2_048_000, rate)
+    table = resampler_kernel.make_table(plan, card)
+    rng = np.random.default_rng(rate // 1000)
+    x = tuple(torch.as_tensor(rng.standard_normal(128 * 300).astype(
+        np.float32), device=card) for _ in range(2))
+    c = tuple(torch.as_tensor(rng.standard_normal(2 * plan.half).astype(
+        np.float32), device=card) for _ in range(2))
+    before = resampler_kernel.resample.launches
+    got, carry = resampler_kernel.resample(x, c, table)
+    torch.cuda.synchronize()
+    assert resampler_kernel.resample.launches == before + 1
+    ref, ref_carry = resampler_kernel.resample_plain(x, c, table)
+    scale = float(ref[0].abs().max())
+    for g, r in zip(got, ref):
+        assert g.shape == (128 * 300 * plan.L // plan.M,)
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5 * scale)
+    for g, r in zip(carry, ref_carry):
+        assert torch.equal(g, r)
+    # two half-stream calls with the carry == one call
+    (a_r, a_i), mid = resampler_kernel.resample(
+        tuple(v[:128 * 150] for v in x), c, table)
+    (b_r, b_i), _ = resampler_kernel.resample(
+        tuple(v[128 * 150:] for v in x), mid, table)
+    assert torch.equal(torch.cat([a_r, b_r]), got[0])
+    assert torch.equal(torch.cat([a_i, b_i]), got[1])
+
+
+MOD_PATHS = {"main": {},
+             "cfr_8m192": dict(enable_cfr=True, cfr_clip=40.0,
+                               cfr_error_clip=3.0, output_rate=8_192_000),
+             # the error clip acts (tests/test_quality.py:151-154); L/M 3/2
+             "cfr30_3m072": dict(enable_cfr=True, cfr_clip=30.0,
+                                 cfr_error_clip=0.1, output_rate=3_072_000)}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["planes", "s16"])
-def test_modulator_on_card_matches_cpu(card, fmt):
-    """Two batches of 2 TFs, state carried, through the kernel on the card
+@pytest.mark.parametrize("path", list(MOD_PATHS))
+def test_modulator_on_card_matches_cpu(card, path, fmt):
+    """Two batches of 2 TFs, state carried, through the kernels on the card
     and through the plain versions on the CPU."""
     kw = (dict(device_interleave=False) if fmt == "planes"
           else dict(output="file", file_output_format="s16"))
-    settings = ModSettings(dab_mode=1, **kw).normalise_for_output()
+    settings = ModSettings(dab_mode=1, **kw,
+                           **MOD_PATHS[path]).normalise_for_output()
+    kernels = ((ofdm_kernel.ofdm_cfr_backend, resampler_kernel.resample)
+               if path != "main" else (ofdm_kernel.ofdm_backend,))
     raw = synth_eti_batch(16, mode=1, subch_specs=BENCH_SPECS, seed=4)
     batches = [parse_eti_frames(raw[:8]), parse_eti_frames(raw[8:])]
-    outs = {}
+    outs, margins = {}, []
     for dev in (card, "cpu"):
         m = Modulator(make_default_layout(1, BENCH_SPECS), settings,
                       device=dev)
         state, res = m.init_state(), []
-        before = ofdm_kernel.ofdm_backend.launches
+        before = [k.launches for k in kernels]
         for b in batches:
+            if dev == "cpu" and settings.enable_cfr:
+                syms, _ = m.ofdm_symbols(b.fic, b.subchannels,
+                                         state["ti_history"])
+                margins.append(ofdm_kernel.cfr_threshold_margin(
+                    syms, m._ofdm_table, settings.cfr_clip,
+                    settings.cfr_error_clip).sum(dim=1).numpy())
             out, state, stats = m.modulate_eti(b, state)
-            res.append((out, {k: int(v) for k, v in stats.items()}))
-        launched = ofdm_kernel.ofdm_backend.launches - before
-        assert launched == (2 if dev == card else 0)
+            res.append((out, {k: v.cpu().numpy() for k, v in stats.items()}))
+        launched = [k.launches - n for k, n in zip(kernels, before)]
+        assert launched == [2 if dev == card else 0] * len(kernels)
         assert int(state["tf_index"]) == 4
         outs[str(dev)] = res
-    for (g, gs), (c, cs) in zip(outs[str(card)], outs["cpu"]):
+    for i, ((g, gs), (c, cs)) in enumerate(zip(outs[str(card)],
+                                               outs["cpu"])):
+        assert set(gs) == set(cs)
+        for k in ("num_clipped", "mer_valid"):
+            if k in cs:
+                np.testing.assert_array_equal(gs[k], cs[k])
+        if "cfr_clip" in cs:
+            for k, lane in (("cfr_clip", 0), ("cfr_errclip", 1)):
+                assert (np.abs(gs[k] - cs[k]) <= margins[i][:, lane]).all()
+            if settings.cfr_error_clip < 1.0:       # it acts, as intended
+                assert cs["cfr_errclip"].min() > 0
+            for k, atol in (("papr_before_cfr", 1e-3),
+                            ("papr_after_cfr", 1e-3), ("mer_db", 0.1)):
+                np.testing.assert_allclose(gs[k], cs[k], atol=atol)
         if fmt == "s16":
             d = (g.cpu().view(torch.int16).int()
                  - c.view(torch.int16).int()).abs().max()
-            assert int(d) <= 1 and gs == cs
+            assert int(d) <= 1
             continue
         scale = max(float(x.abs().max()) for x in c)
         for gp, cp in zip(g, c):

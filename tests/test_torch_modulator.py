@@ -229,6 +229,121 @@ def test_output_contracts():
 
 
 # ---------------------------------------------------------------------------
+# CFR and the polyphase resampler against dabmod_tpu
+# ---------------------------------------------------------------------------
+
+# the repo's documented CFR settings (doc/example.ini:56-59)
+CFR = dict(enable_cfr=True, cfr_clip=40.0, cfr_error_clip=3.0)
+# where the error clip acts (tests/test_quality.py:151-154); the error clip
+# of 3.0 above never does
+CFR_ERR = dict(enable_cfr=True, cfr_clip=30.0, cfr_error_clip=0.1)
+PATHS = {"cfr": CFR, "8m192": dict(output_rate=8_192_000),
+         "cfr_8m192": dict(CFR, output_rate=8_192_000),
+         # L/M = 3/2 and 1/2: the kernel's M > 1 indexing
+         "cfr30_3m072": dict(CFR_ERR, output_rate=3_072_000),
+         "1m024_poly": dict(output_rate=1_024_000, resampler_mode="poly")}
+# dabmod_tpu's XLA resampler frames 32 samples, too few for the 64-sample
+# carry of L/M = 1/2: only its kernels (here interpreted) decimate by poly
+JAX_BACKEND = {"1m024_poly": "pallas-interpret"}
+# at this seed the plain transforms and dabmod_tpu's decide every sample
+# near the clip threshold alike, so the clip counts are equal
+CFR_SEED = 2
+
+
+def _assert_same_stats(got, ref):
+    assert set(got) == set(ref)
+    for k in ("cfr_clip", "cfr_errclip", "mer_valid", "num_clipped"):
+        if k in ref:
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]))
+    for k, atol in (("papr_before_cfr", 1e-3), ("papr_after_cfr", 1e-3),
+                    ("mer_db", 0.1)):
+        if k in ref:
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
+                                       atol=atol)
+
+
+def _flat(out, fmt, n_tf=2):
+    """dabmod_tpu's resampled output keeps its kernel's [rows, 128*L/M]
+    shape on some backends; the flat stream per TF is what both packages
+    define."""
+    if fmt == "planes":
+        return tuple(np.asarray(x).reshape(n_tf, -1) for x in out)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("fmt", ["planes", "s16"])
+@pytest.mark.parametrize("path", list(PATHS))
+def test_cfr_and_resampler_match_reference(path, fmt):
+    """bench.py's layout, 2 TFs a batch, two batches with the state
+    (mer_index, res_carry) carried, against dabmod_tpu's XLA path."""
+    raw = synth_eti_batch(16, mode=1, subch_specs=BENCH_SPECS, seed=CFR_SEED)
+    batches = [parse_eti_frames(raw[:8]), parse_eti_frames(raw[8:])]
+    mj = _jax(fmt=fmt, ofdm_backend=JAX_BACKEND.get(path, "xla"),
+              fft_precision="highest", **PATHS[path])
+    m = _port(fmt=fmt, fft_precision="highest", **PATHS[path])
+    sj, st = mj.init_state(), m.init_state()
+    assert set(st) == set(sj)
+    for b in batches:
+        ref, sj, ref_stats = mj.modulate(b.fic, tuple(b.subchannels), sj)
+        got, st, stats = m.modulate_eti(b, st)
+        _assert_same_output(_np(got), _flat(ref, fmt), fmt, stats,
+                            ref_stats)
+        _assert_same_stats(stats, ref_stats)
+        if PATHS[path].get("cfr_error_clip") == CFR_ERR["cfr_error_clip"]:
+            # the error clip acts and MER leaves its 90 dB clamp
+            assert stats["cfr_errclip"].min() > 0
+            assert stats["mer_db"][stats["mer_valid"]].max() < 90.0
+    assert int(st["tf_index"]) == int(sj["tf_index"]) == 4
+    if "mer_index" in sj:
+        assert int(st["mer_index"]) == int(sj["mer_index"]) == 4
+    if "res_carry" in sj:
+        for g, r in zip(st["res_carry"], sj["res_carry"]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r),
+                                       atol=3e-5 * float(np.abs(r).max()))
+
+
+def test_cfr_resampler_state_carried_over_from_reference():
+    """JAX modulates the first batch with CFR and the resampler; its state
+    (mer_index, res_carry included) lets the port modulate the second."""
+    raw = synth_eti_batch(16, mode=1, subch_specs=BENCH_SPECS, seed=CFR_SEED)
+    b1, b2 = parse_eti_frames(raw[:8]), parse_eti_frames(raw[8:])
+    kw = PATHS["cfr_8m192"]
+    mj = _jax(ofdm_backend="xla", fft_precision="highest", **kw)
+    _, sj, _ = mj.modulate(b1.fic, tuple(b1.subchannels), mj.init_state())
+    sj_np = {k: (tuple(np.asarray(x) for x in v) if isinstance(v, tuple)
+                 else np.asarray(v)) for k, v in sj.items()}
+    ref2, sj2, ref_stats = mj.modulate(b2.fic, tuple(b2.subchannels), sj)
+
+    m = _port(fft_precision="highest", **kw)
+    state = state_from_numpy(sj_np, "cpu")
+    assert int(state["mer_index"]) == 2
+    assert state["res_carry"][0].dtype == torch.float32
+    got2, state2, stats = m.modulate_eti(b2, state)
+    _assert_same_output(_np(got2), _flat(ref2, "planes"), "planes")
+    _assert_same_stats(stats, ref_stats)
+    assert int(state2["mer_index"]) == int(sj2["mer_index"])
+
+
+def test_resampled_output_contracts():
+    b = parse_eti_frames(synth_eti_batch(4, mode=1, seed=1))
+    specs = ((0, 24, 0x22),)
+    for rate, L in ((4_096_000, 2), (8_192_000, 4)):
+        m = _port(specs, "pairs", output_rate=rate, **CFR)
+        n = tables.mode_params(1).tf_samples * L
+        assert m.tf_samples_out == n
+        state = m.init_state()
+        assert state["mer_index"].dtype == torch.int32
+        assert state["res_carry"][0].shape == (32,)
+        out, state, stats = m.modulate_eti(b, state)
+        assert out.shape == (1, n, 2) and out.dtype == torch.float32
+        assert stats["cfr_clip"].dtype == torch.int32
+        assert stats["mer_valid"].dtype == torch.bool
+        assert stats["mer_db"].shape == (1,)
+        assert int(state["mer_index"]) == 1
+    assert _port(specs).tf_samples_out == tables.mode_params(1).tf_samples
+
+
+# ---------------------------------------------------------------------------
 # device rule, unsupported settings, isolation from JAX
 # ---------------------------------------------------------------------------
 
@@ -247,9 +362,10 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("kw,item", [
     ({"fft_engine": "kiss"}, "A9"),
     ({"fft_engine": "dexter"}, "A9"),
-    ({"enable_cfr": True}, "B2"),
+    ({"output_rate": 1_024_000}, "A7"),
     ({"tii_enable": True}, "A8"),
-    ({"output_rate": 4_096_000}, "B3"),
+    ({"output_rate": 4_096_000, "resampler_mode": "fft"}, "A7"),
+    ({"output_rate": 2_500_000}, "A7"),
     ({"cic_eq_clock_rate": 32_768_000}, "A8"),
     ({"filter_taps_file": "default"}, "A8"),
     ({"poly_coef_file": "poly.coef"}, "A8"),

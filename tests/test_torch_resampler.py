@@ -1,0 +1,187 @@
+"""The polyphase resampler of the port (dabmod_tpu_torch.ops.filters and the
+K3 backend ops.resampler_kernel) against dabmod_tpu.
+
+The plan is the same to the bit; the kernel's per-phase tap table rebuilds
+the plan's operator to the bit; on the CPU the K3 wrapper takes its plain
+version, which is held against dabmod_tpu's resample_poly (fp32 on the
+CPU: rtol 1e-5, atol 1e-5*max|ref|, sums in other orders) and against its
+Pallas kernel run in interpret mode (tests/test_filters.py:236's rtol
+1e-3, atol 2e-4: that kernel emulates Precision.HIGH with a bf16 split).
+The CUDA kernel itself runs only on a card (tests/test_torch_cuda.py,
+chip_smoke.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dabmod_tpu.ops import filters as jfilters
+from dabmod_tpu.ops import resampler_kernel as jrk
+from dabmod_tpu_torch.ops import filters, resampler_kernel as rk
+
+BASE = 2_048_000
+
+
+def _plan(rate):
+    return filters.PolyphasePlan.create(BASE, rate)
+
+
+def _jplan(rate):
+    """dabmod_tpu's plan with the 128-sample framing its kernel takes."""
+    return jfilters.PolyphasePlan.create(BASE, rate, block=128)
+
+
+def _stream(n, h2, seed):
+    rng = np.random.default_rng(seed)
+    x = tuple(rng.standard_normal(n).astype(np.float32) for _ in range(2))
+    c = tuple(rng.standard_normal(h2).astype(np.float32) for _ in range(2))
+    return x, c
+
+
+def _t(a):
+    return tuple(torch.as_tensor(v) for v in a)
+
+
+@pytest.mark.parametrize("rate", [4_096_000, 8_192_000, 2_500_000,
+                                  3_072_000, 6_144_000, 1_024_000])
+def test_plan_matches_reference(rate):
+    got = _plan(rate)
+    ref = _jplan(rate)
+    assert (got.L, got.M, got.half, got.block, got.out_block) == \
+        (ref.L, ref.M, ref.half, ref.block, ref.out_block)
+    assert got.matrix.dtype == np.float32
+    np.testing.assert_array_equal(got.matrix, ref.matrix)
+
+
+@pytest.mark.parametrize("rate,L,M", [(4_096_000, 2, 1), (8_192_000, 4, 1),
+                                      (3_072_000, 3, 2), (6_144_000, 3, 1),
+                                      (1_024_000, 1, 2)])
+def test_compact_taps_rebuild_the_operator_exactly(rate, L, M):
+    plan = _plan(rate)
+    row0, taps = rk.compact_taps(plan)
+    assert (plan.L, plan.M) == (L, M) and taps.shape == (L, 2 * plan.half + 1)
+    np.testing.assert_array_equal(rk.expand_taps(row0, taps, plan),
+                                  plan.matrix)
+    # column p's band starts at row ceil(p*M/L)
+    np.testing.assert_array_equal(row0, -(-np.arange(L) * M // L))
+    table = rk.make_table(plan, "cpu")
+    assert table.n_taps == taps.shape[1]
+    np.testing.assert_array_equal(table.taps.numpy(), taps)
+
+
+def test_unsupported_plans_are_refused():
+    plan = _plan(2_500_000)                 # M = 512: 512-sample frames
+    assert not rk.supports(plan) and rk.supports(_plan(8_192_000))
+    with pytest.raises(ValueError, match="128-sample"):
+        rk.make_table(plan, "cpu")
+    bad = _plan(8_192_000)
+    row0, taps = rk.compact_taps(bad)
+    taps = taps.copy()
+    taps[3, -1] = 1.0                       # reaches beyond the frame
+    with pytest.raises(ValueError, match="beyond"):
+        rk.expand_taps(row0 + 1, taps, bad)
+
+
+RATES = [4_096_000, 8_192_000, 3_072_000, 1_024_000]   # M = 1, 1, 2, 2
+
+
+@pytest.mark.parametrize("rate", RATES)
+def test_plain_matches_reference_resample_poly(rate):
+    plan = _plan(rate)
+    table = rk.make_table(plan, "cpu")
+    x, c = _stream(4096, 2 * plan.half, seed=7)
+    (yr, yi), carry = rk.resample(_t(x), _t(c), table)
+    ref, ref_carry = jfilters.resample_poly(
+        tuple(jnp.asarray(v) for v in x), _jplan(rate),
+        tuple(jnp.asarray(v) for v in c))
+    assert yr.shape == (4096 * plan.L // plan.M,)
+    scale = float(np.abs(np.asarray(ref[0])).max())
+    for g, r in zip((yr, yi), ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-5 * scale)
+    for g, r in zip(carry, ref_carry):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("rate", RATES)
+def test_plain_matches_pallas_kernel(rate):
+    plan = _plan(rate)
+    apply = jrk.build_resampler_backend(_jplan(rate), interpret=True)
+    x, _ = _stream(4096, 2 * plan.half, seed=8)
+    z = np.zeros(2 * plan.half, np.float32)
+    (kr, ki), kc = jax.jit(apply)(tuple(jnp.asarray(v) for v in x),
+                                  (jnp.asarray(z),) * 2)
+    (yr, yi), carry = rk.resample(_t(x), _t((z, z)), rk.make_table(plan,
+                                                                   "cpu"))
+    # the kernel's [n/128, 128*L/M] rows are the stream in row-major order
+    for g, r in zip((yr, yi), (kr, ki)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r).reshape(-1),
+                                   rtol=1e-3, atol=2e-4)
+    np.testing.assert_array_equal(carry[0].numpy(), np.asarray(kc[0]))
+
+
+@pytest.mark.parametrize("rate", RATES)
+def test_split_stream_equals_one_call(rate):
+    plan = _plan(rate)
+    table = rk.make_table(plan, "cpu")
+    x, c = _stream(2048, 2 * plan.half, seed=9)
+    (whole_r, whole_i), whole_c = rk.resample(_t(x), _t(c), table)
+    (ar, ai), mid = rk.resample(_t(v[:1024] for v in x), _t(c), table)
+    (br, bi), end = rk.resample(_t(v[1024:] for v in x), mid, table)
+    for got, ref in ((torch.cat([ar, br]), whole_r),
+                     (torch.cat([ai, bi]), whole_i)):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    for g, r in zip(end, whole_c):
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
+
+
+@pytest.mark.parametrize("rate", RATES)
+def test_kernel_sum_equals_plain(rate):
+    """The sum the CUDA kernel computes, y[q*L + p] = sum_k xp[q*M +
+    row0[p] + k] * taps[p, k] over the flat stream, written out in NumPy
+    (float64) == the plain framed product."""
+    plan = _plan(rate)
+    table = rk.make_table(plan, "cpu")
+    x, c = _stream(1024, 2 * plan.half, seed=10)
+    xp = np.concatenate([c[0], x[0]]).astype(np.float64)
+    taps = table.taps.numpy().astype(np.float64)
+    row0 = table.row0.numpy()
+    q = np.arange(1024 // plan.M)[:, None]
+    want = np.zeros((q.shape[0], plan.L))
+    for p in range(plan.L):
+        idx = q * plan.M + row0[p] + np.arange(table.n_taps)[None, :]
+        inside = idx < xp.shape[0]
+        want[:, p] = (np.where(inside, xp[np.minimum(idx, xp.shape[0] - 1)],
+                               0.0) * taps[p]).sum(axis=1)
+    (yr, _), _ = rk.resample_plain(_t(x), _t(c), table)
+    np.testing.assert_allclose(yr.numpy(), want.reshape(-1), rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_wrapper_checks_and_cpu_path_does_not_count():
+    plan = _plan(8_192_000)
+    table = rk.make_table(plan, "cpu")
+    x, c = _stream(512, 32, seed=11)
+    before = rk.resample.launches
+    out, carry = rk.resample(_t(x), _t(c), table)
+    assert rk.resample.launches == before
+    ref, ref_carry = rk.resample_plain(_t(x), _t(c), table)
+    for o, r in zip((*out, *carry), (*ref, *ref_carry)):
+        np.testing.assert_array_equal(o.numpy(), r.numpy())
+    with pytest.raises(TypeError):
+        rk.resample(tuple(t.double() for t in _t(x)), _t(c), table)
+    with pytest.raises(ValueError, match="multiple"):
+        rk.resample(_t(v[:100] for v in x), _t(c), table)
+    with pytest.raises(ValueError, match="carry"):
+        rk.resample(_t(x), _t(v[:5] for v in c), table)
+
+
+def test_papr_db_matches_reference():
+    rng = np.random.default_rng(12)
+    x = tuple(rng.standard_normal((3, 4096)).astype(np.float32)
+              for _ in range(2))
+    got = filters.papr_db(_t(x))
+    ref = jfilters.papr_db(tuple(jnp.asarray(v) for v in x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
