@@ -8,15 +8,21 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. Card and build: prints the card's name and power limit (nvidia-smi) and
    builds every CUDA kernel of the port from dabmod_tpu_torch/ops/csrc/
    (one nvcc per source, all started together), with each kernel's
-   registers and shared memory as ptxas reports them.
+   registers, shared memory and spills as ptxas reports them, and for each
+   instance of K1 and K2 its launch shape as the source reports it on the
+   card (threads and symbols a block, resident blocks an SM from the CUDA
+   runtime's occupancy calculator); fails if an instance of K1 or K2
+   spills or launches another block layout than ofdm_kernel assumes.
 2. Each kernel against its plain PyTorch version on the card, on inputs
    made from a numpy seed:
    * K1, the OFDM IFFT, at all four spacings (TM I-IV), with each mode's
-     own composed carrier->bin table, on random carrier planes;
+     own composed carrier->bin table, on random carrier planes, and again
+     on one symbol and on 13 (a ragged last block below N = 2048);
    * K2, the OFDM IFFT + CFR, the same way, with clip = 1.2 x the mean
      magnitude before CFR and error clip 0.5 (tests/test_ofdm_kernel.py:
      43-44); its clip counts may differ from the plain version's by the
-     samples within 1e-5 (relative) of a threshold, which it prints;
+     samples within 1e-5 (relative) of a threshold, which it prints; and
+     on one symbol and on 13;
    * K3, the polyphase resampler, at 3.072, 4.096 and 8.192 MS/s and
      (resampler_mode="poly") 1.024 MS/s, so L/M = 3/2, 2, 4 and 1/2, on a
      stream of the main path's length (24 TFs), and two half-stream calls
@@ -44,9 +50,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    same runs, samples/s at the output rate and a torch.profiler breakdown
    in both formats; each kernel (20 back-to-back calls a run, cycling
    through input sets larger than L2 together, and again on one input
-   set), its plain version, one PyTorch library call as a yardstick where
-   one computes the same function, and the kernel's bound from this run's
-   shapes.
+   set; the card spins in torch.cuda._sleep while the host issues the
+   calls, so the events see device time only, and the host's issue time
+   is kept beside it; a call that synchronises, such as the plain CFR, is
+   timed without the spin and marked host_paced), its plain version, one
+   PyTorch library call as a yardstick where one computes the same
+   function, and the kernel's bound from this run's shapes.
 
 TF32 is switched off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False): every tolerance below assumes fp32
@@ -57,6 +66,7 @@ numbers, labelled with the card's name and power limit; the last is
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -127,14 +137,11 @@ def load_golden(name: str) -> np.ndarray:
 # timing
 # ---------------------------------------------------------------------------
 
-def time_runs(torch, fn, reps=1, n=N_TIMED, warm=N_WARM):
-    """n runs of `reps` back-to-back calls of fn(), each run timed twice:
-    on the card, between CUDA events recorded around the calls, and on the
-    host, from the first call to the return of the last (the host's time to
-    issue them; nothing synchronises in between).  Returns the two lists of
-    ms per call.  With reps > 1 the host queues the next call while the
-    card runs this one, so a kernel's device time excludes the host's time
-    to issue it."""
+def time_runs(torch, fn, n=N_TIMED, warm=N_WARM):
+    """n calls of fn(), each timed twice: on the card, between CUDA events
+    recorded around the call, and on the host, from the call to its return
+    (the host's time to issue it; nothing synchronises in between).
+    Returns the two lists of ms."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -144,18 +151,12 @@ def time_runs(torch, fn, reps=1, n=N_TIMED, warm=N_WARM):
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host.append((time.perf_counter() - t0) * 1e3 / reps)
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
         e1.record()
         e1.synchronize()
-        dev.append(e0.elapsed_time(e1) / reps)
+        dev.append(e0.elapsed_time(e1))
     return dev, host
-
-
-def time_ms(torch, fn, reps=1) -> float:
-    """The median device time of time_runs."""
-    return statistics.median(time_runs(torch, fn, reps)[0])
 
 
 def cycled(fn, inputs):
@@ -166,16 +167,84 @@ def cycled(fn, inputs):
     return lambda: fn(next(it))
 
 
-def kernel_times(torch, fns) -> dict:
+def sleep_cycles_per_ms(torch) -> float:
+    """The card's clock as torch.cuda._sleep counts it (cycles per ms),
+    after a spin that lets the clock rise from idle."""
+    torch.cuda._sleep(50_000_000)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(50_000_000)
+    e1.record()
+    e1.synchronize()
+    return 50_000_000 / e0.elapsed_time(e1)
+
+
+def device_runs(torch, fn, reps, cycles_per_ms, n=N_TIMED, warm=N_WARM):
+    """n runs of `reps` back-to-back calls of fn(), each timed on the card
+    between CUDA events, with the card held in a spin kernel
+    (torch.cuda._sleep) while the host issues the calls: the events then
+    see the calls run back to back, whatever the host's time to issue them
+    (a wrapper's Python and ctypes take tens of us a call, longer than a
+    kernel of this size).  A run whose spin ended before the host issued
+    its last call (the event recorded after the spin has completed) is
+    redone with a spin twice as long.  A call that waits for the card
+    itself (a host synchronisation inside fn) cannot run behind a spin:
+    its runs are timed without one, paced by the host.  Returns (device ms
+    per call, host ms per call) for each run, and whether the host paced
+    them."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    spin_ms = 2.0 * (time.perf_counter() - t0) * 1e3 + 0.1
+    torch.cuda.synchronize()
+    mark = torch.cuda.Event()
+    torch.cuda._sleep(int(spin_ms * cycles_per_ms))
+    mark.record()
+    fn()
+    host_paced = mark.query()
+    torch.cuda.synchronize()
+    dev, host = [], []
+    while len(dev) < n:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        if not host_paced:
+            torch.cuda._sleep(int(spin_ms * cycles_per_ms))
+        e0.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        spun_out = not host_paced and e0.query()
+        e1.record()
+        e1.synchronize()
+        if spun_out:
+            spin_ms *= 2
+            continue
+        dev.append(e0.elapsed_time(e1) / reps)
+        host.append(issue_ms / reps)
+    return dev, host, host_paced
+
+
+def kernel_times(torch, fns, cycles_per_ms) -> dict:
     """For each key of fns ("", "plain_", "library_") and its (fn, input
-    sets): the median ms per call cycling through the sets (`<key>ms`)
-    and reusing the first (`<key>ms_warm_l2`)."""
+    sets): the median device ms per call cycling through the sets
+    (`<key>ms`) and reusing the first (`<key>ms_warm_l2`), the host's
+    median ms to issue one call (`<key>host_issue_ms`), and whether the
+    host paced the runs (`<key>host_paced`: the call synchronises)."""
     times = {}
     for key, (fn, inputs) in fns.items():
-        times[key + "ms"] = time_ms(torch, cycled(fn, inputs),
-                                    reps=KERNEL_REPS)
-        times[key + "ms_warm_l2"] = time_ms(
-            torch, lambda fn=fn, x=inputs[0]: fn(x), reps=KERNEL_REPS)
+        dev, host, paced = device_runs(torch, cycled(fn, inputs),
+                                       KERNEL_REPS, cycles_per_ms)
+        times[key + "ms"] = statistics.median(dev)
+        times[key + "host_issue_ms"] = statistics.median(host)
+        times[key + "host_paced"] = paced
+        times[key + "ms_warm_l2"] = statistics.median(device_runs(
+            torch, lambda fn=fn, x=inputs[0]: fn(x), KERNEL_REPS,
+            cycles_per_ms)[0])
     return times
 
 
@@ -202,16 +271,59 @@ def phase_card_and_build(torch):
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     from dabmod_tpu_torch.ops import build
+    from dabmod_tpu_torch.ops import ofdm_kernel as K
     t0 = time.perf_counter()
     paths = build.build(*build.SOURCES)
     log(f"[1] built {', '.join(build.SOURCES)} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    ptxas = {}
     for name, path in zip(build.SOURCES, paths):
         with open(path + ".log") as f:
-            ptxas = " | ".join(ln.strip() for ln in f
-                               if "registers" in ln or "smem" in ln)
-        log(f"    {name}: {ptxas}")
-    return card
+            ptxas[name] = parse_ptxas(f.read())
+        if name in ("ofdm_ifft", "ofdm_cfr"):
+            for inst, rec in ptxas[name].items():
+                check(rec["spill_stores"] == 0,
+                      f"{name} {inst}: {rec['spill_stores']} bytes of "
+                      f"spill stores")
+                n = 1 << int(inst)
+                rec.update(K.launch_shape(n, cfr=name == "ofdm_cfr"))
+                check(rec["threads_per_block"] == K.THREADS_PER_BLOCK
+                      and rec["symbols_per_block"] == K.symbols_per_block(n),
+                      f"{name} N={n}: the source launches "
+                      f"{rec['threads_per_block']} threads and "
+                      f"{rec['symbols_per_block']} symbols a block, "
+                      f"ofdm_kernel assumes {K.THREADS_PER_BLOCK} and "
+                      f"{K.symbols_per_block(n)}")
+        log(f"    {name}: {json.dumps(ptxas[name])}")
+    return card, ptxas
+
+
+def parse_ptxas(text: str) -> dict:
+    """Registers, shared memory and spill stores of each kernel in nvcc's
+    -Xptxas -v output, keyed by the kernel's template argument (log2 N for
+    the OFDM kernels) or "" for a kernel that is not a template."""
+    out, key = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", ln)
+        if m:
+            tmpl = re.search(r"ILi(\d+)E", m.group(1))
+            key = tmpl.group(1) if tmpl else ""
+            out.setdefault(key, {"registers": 0, "smem_bytes": 0,
+                                 "spill_stores": 0})
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            out[key]["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[key]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            out[key]["smem_bytes"] = int(m.group(1))
+    return out
 
 
 def mode_table(mode, device):
@@ -232,8 +344,9 @@ def random_planes(torch, rng, shape):
 
 def phase_kernels(torch):
     """K1 and K2 against their plain versions at all four spacings, K3 at
-    4.096 and 8.192 MS/s; returns each kernel's main-path-shaped inputs
-    and its max abs error there, for phase 5."""
+    RES_RATES; returns, for phase 5, TM I's main-path-shaped input with
+    its table and K2 clip ("ofdm"), each kernel's max abs error there (and
+    K2's statistics) and K3's 8.192 MS/s input."""
     from dabmod_tpu_torch import tables
     from dabmod_tpu_torch.ops import ofdm_kernel
     rng = np.random.default_rng(SEED)
@@ -255,17 +368,40 @@ def phase_kernels(torch):
         log(f"[2] ofdm_ifft TM {mode} N={p.spacing} {shape}: max abs err "
             f"{err:.3e} (tol {tol:.3e})")
         check(err <= tol, f"ofdm_ifft TM {mode}: err {err} > {tol}")
-        if mode == 1:
-            out["ofdm_ifft"] = (planes, table, err)
 
-        # K2 on the same carriers: clip at 1.2 x the mean magnitude
-        clip = 1.2 * float(torch.sqrt(ref[0] ** 2 + ref[1] ** 2).mean())
+        # K2 on the same carriers
+        clip = k2_clip(torch, planes, table)
         out_cfr = check_cfr_kernel(torch, f"TM {mode} N={p.spacing} {shape}",
                                    planes, table, clip, K2_ERROR_CLIP)
         if mode == 1:
-            out["ofdm_cfr"] = (planes, table, clip, K2_ERROR_CLIP, *out_cfr)
+            out.update(ofdm=(planes, table, clip), ofdm_ifft=err,
+                       ofdm_cfr=out_cfr)
+
+        # one symbol, and 13: not a multiple of the symbols a block
+        # carries below N = 2048, so the last block is ragged
+        for n_sym in (1, 13):
+            small = random_planes(torch, rng, (1, n_sym, p.nb_carriers))
+            got = ofdm_kernel.ofdm_backend(small, table)
+            torch.cuda.synchronize()
+            ref = ofdm_kernel.ofdm_backend_plain(small, table)
+            tol = 2e-5 * max(float(r.abs().max()) for r in ref)
+            err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            log(f"[2] ofdm_ifft TM {mode} N={p.spacing} {n_sym} symbol(s), "
+                f"{ofdm_kernel.symbols_per_block(p.spacing)} a block: max "
+                f"abs err {err:.3e} (tol {tol:.3e})")
+            check(err <= tol, f"ofdm_ifft TM {mode} x{n_sym}: err {err}")
+            check_cfr_kernel(torch, f"TM {mode} N={p.spacing} {n_sym} "
+                             f"symbol(s)", small, table, clip, K2_ERROR_CLIP)
     out["resample_poly"] = phase_resampler(torch, rng)
     return out
+
+
+def k2_clip(torch, planes, table) -> float:
+    """K2's clip in phase 2: 1.2 x the mean magnitude before CFR
+    (tests/test_ofdm_kernel.py:43)."""
+    from dabmod_tpu_torch.ops import ofdm_kernel
+    td = ofdm_kernel.ofdm_backend_plain(planes, table)
+    return 1.2 * float(torch.sqrt(td[0] ** 2 + td[1] ** 2).mean())
 
 
 def check_cfr_kernel(torch, tag, planes, table, clip, error_clip):
@@ -300,8 +436,8 @@ def check_cfr_kernel(torch, tag, planes, table, clip, error_clip):
         lane_err = max(lane_err, rel)
     check(lane_err <= 1e-4, f"ofdm_cfr {tag}: stats rtol {lane_err}")
     check(not bool(st[..., K.ST_PAD].any()), f"ofdm_cfr {tag}: pad lane")
-    log(f"[2] ofdm_cfr {tag}: {3 * table.n * 8} B of dynamic shared memory "
-        f"a block; max abs err {err:.3e} (tol {tol:.3e}); clip counts |diff| {diffs[0][0]} (margin {diffs[0][1]}, of "
+    log(f"[2] ofdm_cfr {tag}: {K.symbols_per_block(table.n)} symbol(s) a "
+        f"block; max abs err {err:.3e} (tol {tol:.3e}); clip counts |diff| {diffs[0][0]} (margin {diffs[0][1]}, of "
         f"{diffs[0][2]}), error-clip |diff| {diffs[1][0]} (margin "
         f"{diffs[1][1]}, of {diffs[1][2]}); stats lanes rtol {lane_err:.2e}")
     check(err <= tol, f"ofdm_cfr {tag}: err {err} > {tol}")
@@ -339,10 +475,9 @@ def phase_resampler(torch, rng):
         b, _ = R.resample(tuple(v[h:] for v in x), mid, table)
         split = all(torch.equal(torch.cat([u, v]), g)
                     for u, v, g in zip(a, b, got))
-        smem = 4 * (plan.L * table.n_taps + plan.L + 2 * table.span)
         log(f"[2] resample_poly {rate / 1e6:g} MS/s ({mode}) L={plan.L} "
-            f"M={plan.M} "
-            f"K={table.n_taps}, {smem} B of dynamic shared memory a block, "
+            f"M={plan.M} K={table.n_taps}, {table.smem_bytes} B of dynamic "
+            f"shared memory a block, "
             f"{n} -> {got[0].shape[0]} samples a plane: "
             f"max abs err {err:.3e} (rtol 1e-5, atol {1e-5 * scale:.3e}); "
             f"two half-stream calls equal one: {split}")
@@ -648,25 +783,47 @@ def time_path(torch, path, specs, extra):
     return rec
 
 
-def time_ofdm_ifft(torch, planes, table, err, launches):
-    from dabmod_tpu_torch.ops import ofdm_kernel
-    B, S, C = planes[0].shape
-    n = table.n
-    # L2_SETS input sets, cycled: the headline times read their input from
-    # device memory; the *_warm_l2 times reuse one set, which may sit in L2
+def ofdm_timing_sets(torch, planes):
+    """planes and L2_SETS - 1 more random input sets of their shape:
+    cycled, they are larger than the card's L2 together."""
     rng = np.random.default_rng(SEED + 2)
-    sets = [planes] + [random_planes(torch, rng, planes[0].shape)
+    return [planes] + [random_planes(torch, rng, planes[0].shape)
                        for _ in range(L2_SETS - 1)]
-    # the yardstick: cuFFT alone on bins gathered ahead of time (no single
+
+
+def ofdm_calls(table, clip) -> dict:
+    """The timed calls of K1 and K2 ("") and of their plain versions
+    ("plain_") on one input set, K2 at phase 2's thresholds."""
+    from dabmod_tpu_torch.ops import ofdm_kernel as K
+    return {
+        "ofdm_ifft": {"": lambda x: K.ofdm_backend(x, table),
+                      "plain_": lambda x: K.ofdm_backend_plain(x, table)},
+        "ofdm_cfr": {
+            "": lambda x: K.ofdm_cfr_backend(x, table, clip, K2_ERROR_CLIP),
+            "plain_": lambda x: K.ofdm_cfr_backend_plain(x, table, clip,
+                                                         K2_ERROR_CLIP)}}
+
+
+def table_bytes(table) -> int:
+    return 4 * (table.gather.numel() + table.twiddle.numel())
+
+
+def time_ofdm_ifft(torch, cpm, sets, table, calls, err, launches, ptxas):
+    from dabmod_tpu_torch.ops import ofdm_kernel
+    B, S, C = sets[0][0].shape
+    n = table.n
+    # the input sets, cycled: the headline times read their input from
+    # device memory; the *_warm_l2 times reuse one set, which may sit in L2.
+    # The yardstick: cuFFT alone on bins gathered ahead of time (no single
     # PyTorch call does the gather and the transform)
     bins = [torch.complex(*ofdm_kernel.gather_bins(x, table)) for x in sets]
     t = kernel_times(torch, {
-        "": (lambda x: ofdm_kernel.ofdm_backend(x, table), sets),
-        "plain_": (lambda x: ofdm_kernel.ofdm_backend_plain(x, table), sets),
-        "library_": (lambda x: torch.fft.ifft(x, norm="forward"), bins)})
+        **{key: (fn, sets) for key, fn in calls.items()},
+        "library_": (lambda x: torch.fft.ifft(x, norm="forward"), bins)},
+        cpm)
     # least work: each carrier read once, each sample written once, the
     # tables read once; 5 N log2 N flop per symbol
-    b = bound(B * S * C * 8 + B * S * n * 8 + n * 8 + (n // 2) * 8,
+    b = bound(B * S * C * 8 + B * S * n * 8 + table_bytes(table),
               5 * n * table.log2n * B * S)
     k = {"name": "ofdm_ifft", "route": "cuda",
          "source": "dabmod_tpu_torch/ops/csrc/ofdm_ifft.cu",
@@ -676,8 +833,10 @@ def time_ofdm_ifft(torch, planes, table, err, launches):
          "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
          "library_ms": t["library_ms"],
          "library_call": "torch.fft.ifft on bins gathered beforehand",
-         **{key: v for key, v in t.items() if key.endswith("_warm_l2")},
+         **{key: v for key, v in t.items()
+            if key.endswith(("_warm_l2", "host_issue_ms", "host_paced"))},
          "l2_sets": L2_SETS, "shape": [B, S, C, n],
+         **ptxas[str(table.log2n)],
          "bytes": b["bytes"], "flops": b["flops"]}
     log(f"[5] ofdm_ifft {B}x{S} symbols, C={C}, N={n}: {t['ms']:.4f} ms "
         f"(bound {k['bound_ms']:.4f} ms by {k['bound_by']}; plain "
@@ -688,18 +847,13 @@ def time_ofdm_ifft(torch, planes, table, err, launches):
     return k
 
 
-def time_ofdm_cfr(torch, planes, table, clip, error_clip, err, stats,
-                  launches):
+def time_ofdm_cfr(torch, cpm, sets, table, calls, clip, err, stats,
+                  launches, ptxas):
     from dabmod_tpu_torch.ops import ofdm_kernel as K
-    B, S, C = planes[0].shape
+    B, S, C = sets[0][0].shape
     n = table.n
-    rng = np.random.default_rng(SEED + 3)
-    sets = [planes] + [random_planes(torch, rng, planes[0].shape)
-                       for _ in range(L2_SETS - 1)]
-    t = kernel_times(torch, {
-        "": (lambda x: K.ofdm_cfr_backend(x, table, clip, error_clip), sets),
-        "plain_": (lambda x: K.ofdm_cfr_backend_plain(x, table, clip,
-                                                      error_clip), sets)})
+    t = kernel_times(torch, {key: (fn, sets) for key, fn in calls.items()},
+                     cpm)
     # least work: carriers read once, samples and statistics written once,
     # the tables read once; three transforms of 5 N log2 N flop, 27 flop a
     # sample for the clip, the error update and the sums, and a division
@@ -707,7 +861,7 @@ def time_ofdm_cfr(torch, planes, table, clip, error_clip, err, stats,
     n_clip = float(stats[..., K.ST_NCLIP].sum() + stats[..., K.ST_NERRCLIP]
                    .sum())
     b = bound(B * S * C * 8 + B * S * n * 8 + B * S * K.STATS * 4
-              + n * 8 + (n // 2) * 8,
+              + table_bytes(table),
               B * S * (15 * n * table.log2n + 27 * n) + 2 * n_clip)
     k = {"name": "ofdm_cfr", "route": "cuda",
          "source": "dabmod_tpu_torch/ops/csrc/ofdm_cfr.cu",
@@ -719,9 +873,11 @@ def time_ofdm_cfr(torch, planes, table, clip, error_clip, err, stats,
          "library_ms": None,
          "library_call": "none: no single PyTorch call computes the "
                          "transform, the clips and the statistics",
-         **{key: v for key, v in t.items() if key.endswith("_warm_l2")},
+         **{key: v for key, v in t.items()
+            if key.endswith(("_warm_l2", "host_issue_ms", "host_paced"))},
          "l2_sets": L2_SETS, "shape": [B, S, C, n], "clip": clip,
-         "error_clip": error_clip, "bytes": b["bytes"], "flops": b["flops"]}
+         "error_clip": K2_ERROR_CLIP, **ptxas[str(table.log2n)],
+         "bytes": b["bytes"], "flops": b["flops"]}
     log(f"[5] ofdm_cfr {B}x{S} symbols, C={C}, N={n}: {t['ms']:.4f} ms "
         f"(bound {k['bound_ms']:.4f} ms by {k['bound_by']}; plain "
         f"{t['plain_ms']:.4f} ms; no library call; one input set reused: "
@@ -729,7 +885,7 @@ def time_ofdm_cfr(torch, planes, table, clip, error_clip, err, stats,
     return k
 
 
-def time_resample(torch, x, carry, table, err, launches):
+def time_resample(torch, cpm, x, carry, table, err, launches, ptxas):
     from dabmod_tpu_torch.ops import resampler_kernel as R
     plan = table.plan
     n = x[0].shape[0]
@@ -768,7 +924,7 @@ def time_resample(torch, x, carry, table, err, launches):
     t = kernel_times(torch, {
         "": (lambda s: R.resample(s, carry, table), sets),
         "plain_": (lambda s: R.resample_plain(s, carry, table), sets),
-        "library_": (library, stacked)})
+        "library_": (library, stacked)}, cpm)
     # least work: each input and carry sample read once, each output
     # written once, the tables read once; 2 flop per non-zero tap of the
     # band for every output of both planes
@@ -784,9 +940,12 @@ def time_resample(torch, x, carry, table, err, launches):
          "library_ms": t["library_ms"],
          "library_call": "torch.nn.functional.conv_transpose1d, stride L, "
                          "the plan's prototype filter (cuDNN, no TF32)",
-         **{key: v for key, v in t.items() if key.endswith("_warm_l2")},
+         **{key: v for key, v in t.items()
+            if key.endswith(("_warm_l2", "host_issue_ms", "host_paced"))},
          "l2_sets": RES_L2_SETS, "L": plan.L, "M": plan.M,
          "taps": table.n_taps, "samples_in": n, "samples_out": n_out,
+         **R.launch_shape(table), "symbols_per_block": None,
+         "outputs_per_block": table.q_per_block * plan.L, **ptxas[""],
          "bytes": b["bytes"], "flops": b["flops"]}
     log(f"[5] resample_poly {n} -> {n_out} samples a plane (L={plan.L}, "
         f"M={plan.M}): {t['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms by "
@@ -797,14 +956,22 @@ def time_resample(torch, x, carry, table, err, launches):
     return k
 
 
-def phase_times(torch, inputs, launches):
+def phase_times(torch, inputs, launches, ptxas):
     for path, (ensembles, extra, _used) in _paths().items():
         time_path(torch, path, ensembles[0][1], extra)
-    return [time_ofdm_ifft(torch, *inputs["ofdm_ifft"],
-                           launches["ofdm_ifft"]),
-            time_ofdm_cfr(torch, *inputs["ofdm_cfr"], launches["ofdm_cfr"]),
-            time_resample(torch, *inputs["resample_poly"],
-                          launches["resample_poly"])]
+    cpm = sleep_cycles_per_ms(torch)
+    log(f"[5] torch.cuda._sleep: {cpm:.0f} cycles a ms")
+    planes, table, clip = inputs["ofdm"]
+    sets = ofdm_timing_sets(torch, planes)
+    calls = ofdm_calls(table, clip)
+    return [time_ofdm_ifft(torch, cpm, sets, table, calls["ofdm_ifft"],
+                           inputs["ofdm_ifft"], launches["ofdm_ifft"],
+                           ptxas["ofdm_ifft"]),
+            time_ofdm_cfr(torch, cpm, sets, table, calls["ofdm_cfr"], clip,
+                          *inputs["ofdm_cfr"], launches["ofdm_cfr"],
+                          ptxas["ofdm_cfr"]),
+            time_resample(torch, cpm, *inputs["resample_poly"],
+                          launches["resample_poly"], ptxas["resample_poly"])]
 
 
 def main():
@@ -821,11 +988,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    card = phase_card_and_build(torch)
+    card, ptxas = phase_card_and_build(torch)
     inputs = phase_kernels(torch)
     phase_frontend(torch)
     launches = phase_paths(torch)
-    kernels = phase_times(torch, inputs, launches)
+    kernels = phase_times(torch, inputs, launches, ptxas)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

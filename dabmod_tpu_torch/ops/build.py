@@ -115,3 +115,17 @@ def launcher(name: str, symbol: str, n_pointers: int, *scalars):
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def query(name: str, symbol: str, n_out: int, *args: int) -> list[int]:
+    """Call the C function `symbol`(int args..., int* out) of csrc/<name>.cu,
+    which fills `n_out` ints and returns a CUDA error code; returns the
+    ints.  The kernels' launch-shape queries take this form."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * n_out)()
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: CUDA error {err}")
+    return list(out)

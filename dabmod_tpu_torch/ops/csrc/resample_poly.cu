@@ -102,21 +102,20 @@ resample_poly_kernel(const float* __restrict__ xr,
 // Launch on `stream` (a cudaStream_t).  The caller checks every argument:
 // n_in > 0 a multiple of M, 0 < h2, 1 <= L, 1 <= M, 1 <= K, every row0
 // entry in [0, span - K - (q_per_block - 1) * M], span the staged run
-// length, smem_bytes = (L*K + L + 2*span) * 4 <= 48 KB, all buffers on the
-// current device.  Returns cudaGetLastError() after the launch (0 =
-// launched).
+// length, smem_bytes the kernel's carve-up above, (L*K + L + 2*span) * 4,
+// at most 48 KB (resampler_kernel.make_table), all buffers on the current
+// device.  Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int dabmod_resample_poly(const void* xr, const void* xi,
                                     const void* carry_r, const void* carry_i,
                                     const void* row0, const void* taps,
                                     void* yr, void* yi, long long n_in,
                                     int h2, int L, int M, int K,
-                                    int q_per_block, int span,
+                                    int q_per_block, int span, int smem_bytes,
                                     void* stream) {
   const long long n_q = n_in / M;
   const long long blocks = (n_q + q_per_block - 1) / q_per_block;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(L) * K + L +
-                                       2 * static_cast<size_t>(span));
-  resample_poly_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+  resample_poly_kernel<<<static_cast<unsigned>(blocks), kThreads,
+                         static_cast<size_t>(smem_bytes),
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xr), static_cast<const float*>(xi),
       static_cast<const float*>(carry_r), static_cast<const float*>(carry_i),
@@ -124,4 +123,15 @@ extern "C" int dabmod_resample_poly(const void* xr, const void* xi,
       static_cast<float*>(yr), static_cast<float*>(yi), n_in, h2, L, M, K,
       q_per_block, span);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch shape on the current device at smem_bytes of dynamic shared
+// memory: out[0] threads a block, out[1] resident blocks an SM by the CUDA
+// runtime's occupancy calculator.  Returns the CUDA error code (0 =
+// success).
+extern "C" int dabmod_resample_poly_shape(int smem_bytes, int* out) {
+  out[0] = kThreads;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], resample_poly_kernel, kThreads,
+      static_cast<size_t>(smem_bytes)));
 }

@@ -17,7 +17,8 @@ natural-order time samples [B, S, N].
 Each launches its kernel for CUDA tensors, counts the launch in its
 `launches` attribute, and takes its plain version only for CPU tensors.
 The CUDA sources' headers give each kernel's design and what bounds it on
-the card.
+the card; csrc/fft_core.cuh holds the register-resident FFT core both
+kernels run on.
 """
 from __future__ import annotations
 
@@ -33,12 +34,33 @@ from .fft import fft_planes, ifft_planes
 from .ofdm import amp_clip, cfr_correct, f32_square
 
 MAX_CARRIERS = 1536      # the kernel's shared-memory carrier buffer (TM I)
+                         # (and at most 3/4 of the spacing, as every mode)
 MAX_SPACING = 2048       # the kernel's shared-memory bin buffer (TM I)
+MIN_SPACING = 256        # the FFT core's smallest transform (TM III)
+THREADS_PER_BLOCK = 128  # csrc/fft_core.cuh kBlockThreads
+POINTS = 16              # csrc/fft_core.cuh kPoints: points a thread holds
 
 # per-symbol statistics lanes of ofdm_cfr_backend (dabmod_tpu's ST_*)
 ST_NCLIP, ST_NERRCLIP, ST_POW_BEFORE, ST_PEAK_BEFORE, \
     ST_POW_AFTER, ST_PEAK_AFTER, ST_MER_DEN, ST_PAD = range(8)
 STATS = 8
+
+
+def symbols_per_block(n: int) -> int:
+    """Symbols one block of the kernels carries at spacing n (the FFT core
+    gives each symbol n / POINTS threads)."""
+    return THREADS_PER_BLOCK * POINTS // n
+
+
+def twiddle_angles(n: int) -> np.ndarray:
+    """The FFT core's inter-pass twiddle angles in float64, in the order
+    the passes read them (csrc/fft_core.cuh): part 1, [16, R0] with R0 =
+    n / 256, 2*pi*r*k / (16*R0); then part 2, [16, n / 16], 2*pi*r*t / n."""
+    r0, ts = n // 256, n // POINTS
+    r = np.arange(POINTS)[:, None]
+    part1 = r * np.arange(r0)[None, :] / (POINTS * r0)
+    part2 = r * np.arange(ts)[None, :] / n
+    return 2.0 * np.pi * np.concatenate([part1.ravel(), part2.ravel()])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +72,10 @@ class OfdmTable:
     n_carriers: int
     src: torch.Tensor        # int32 [n]: carrier feeding bin k (0 if empty)
     valid: torch.Tensor      # float32 [n]: 1 where bin k carries a carrier
-    twiddle: torch.Tensor    # float32 [n/2, 2]: exp(+2*pi*i*m/n), m < n/2
+    gather: torch.Tensor     # int32 [n]: src, or n_carriers (the kernels'
+                             # zero slot) where bin k is empty
+    twiddle: torch.Tensor    # float32 [16*n/256 + n, 2]: twiddle_angles(n)
+                             # as (cos, sin)
 
 
 def make_table(bin_src, bin_valid, device) -> OfdmTable:
@@ -61,21 +86,25 @@ def make_table(bin_src, bin_valid, device) -> OfdmTable:
     valid = np.asarray(bin_valid) != 0
     n = int(bin_src.shape[0])
     log2n = n.bit_length() - 1
-    if n < 4 or n != 1 << log2n or n > MAX_SPACING:
+    if n != 1 << log2n or not MIN_SPACING <= n <= MAX_SPACING:
         raise ValueError(f"spacing {n}: need a power of two in "
-                         f"[4, {MAX_SPACING}]")
+                         f"[{MIN_SPACING}, {MAX_SPACING}]")
     n_carriers = int(np.count_nonzero(valid))
     src = np.where(valid, bin_src, 0).astype(np.int32)
-    if n_carriers > MAX_CARRIERS or np.any(src < 0) \
+    if n_carriers > min(MAX_CARRIERS, 3 * n // 4) or np.any(src < 0) \
             or np.any(src >= n_carriers):
         raise ValueError("carrier map sources must lie in [0, carriers) "
-                         f"with at most {MAX_CARRIERS} carriers")
-    ang = 2.0 * np.pi * np.arange(n // 2) / n          # float64
+                         f"with at most {MAX_CARRIERS} carriers and 3/4 "
+                         "of the spacing (the DAB modes' share; the CFR "
+                         "kernel's carrier buffer)")
+    gather = np.where(valid, src, n_carriers).astype(np.int32)
+    ang = twiddle_angles(n)
     twiddle = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
     return OfdmTable(
         n, log2n, n_carriers,
         torch.as_tensor(src, device=device),
         torch.as_tensor(valid.astype(np.float32), device=device),
+        torch.as_tensor(gather, device=device),
         torch.as_tensor(twiddle, device=device))
 
 
@@ -166,15 +195,27 @@ def _check_planes(planes, table: OfdmTable):
 
 @functools.cache
 def _launcher():
-    return build.launcher("ofdm_ifft", "dabmod_ofdm_ifft", 7,
+    return build.launcher("ofdm_ifft", "dabmod_ofdm_ifft", 6,
                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int)
 
 
 @functools.cache
 def _cfr_launcher():
-    return build.launcher("ofdm_cfr", "dabmod_ofdm_cfr", 8,
+    return build.launcher("ofdm_cfr", "dabmod_ofdm_cfr", 7,
                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_float)
+
+
+def launch_shape(n: int, cfr: bool = False) -> dict:
+    """The launch shape of K1's instance at spacing n (K2's with cfr) on
+    the current CUDA device, as its source reports it: threads and symbols
+    a block, and resident blocks an SM by the CUDA runtime's occupancy
+    calculator.  Builds the kernel's library if needed."""
+    name = "ofdm_cfr" if cfr else "ofdm_ifft"
+    threads, spb, blocks = build.query(name, f"dabmod_{name}_shape", 3,
+                                       n.bit_length() - 1)
+    return {"threads_per_block": threads, "symbols_per_block": spb,
+            "resident_blocks_per_sm": blocks}
 
 
 def ofdm_backend(planes, table: OfdmTable):
@@ -193,9 +234,9 @@ def ofdm_backend(planes, table: OfdmTable):
         return out_r, out_i
     launch = _launcher()
     with torch.cuda.device(re.device):
-        err = launch(re.data_ptr(), im.data_ptr(), table.src.data_ptr(),
-                     table.valid.data_ptr(), table.twiddle.data_ptr(),
-                     out_r.data_ptr(), out_i.data_ptr(), B * S, C,
+        err = launch(re.data_ptr(), im.data_ptr(), table.gather.data_ptr(),
+                     table.twiddle.data_ptr(), out_r.data_ptr(),
+                     out_i.data_ptr(), B * S, C,
                      table.log2n, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ofdm_ifft kernel launch failed: CUDA error {err}")
@@ -227,9 +268,9 @@ def ofdm_cfr_backend(planes, table: OfdmTable, clip: float,
         return (out_r, out_i), stats
     launch = _cfr_launcher()
     with torch.cuda.device(re.device):
-        err = launch(re.data_ptr(), im.data_ptr(), table.src.data_ptr(),
-                     table.valid.data_ptr(), table.twiddle.data_ptr(),
-                     out_r.data_ptr(), out_i.data_ptr(), stats.data_ptr(),
+        err = launch(re.data_ptr(), im.data_ptr(), table.gather.data_ptr(),
+                     table.twiddle.data_ptr(), out_r.data_ptr(),
+                     out_i.data_ptr(), stats.data_ptr(),
                      B * S, C, table.log2n, f32_square(clip),
                      f32_square(error_clip),
                      torch.cuda.current_stream().cuda_stream)

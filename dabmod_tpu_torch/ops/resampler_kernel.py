@@ -89,6 +89,8 @@ class ResamplerTable:
     matrix: torch.Tensor     # float32 plan.matrix (the plain version's)
     q_per_block: int         # output groups of L per thread block
     span: int                # input samples a block stages
+    smem_bytes: int          # a block's dynamic shared memory: taps [L*K],
+                             # row0 [L], the staged run [2, span], 4 B each
 
 
 def make_table(plan: PolyphasePlan, device) -> ResamplerTable:
@@ -100,13 +102,15 @@ def make_table(plan: PolyphasePlan, device) -> ResamplerTable:
     L, K = taps.shape
     q_per_block = max(1, OUT_PER_BLOCK // L)
     span = (q_per_block - 1) * plan.M + int(row0.max()) + K
-    if 4 * (L * K + L + 2 * span) > SMEM_LIMIT:
+    smem_bytes = 4 * (L * K + L + 2 * span)
+    if smem_bytes > SMEM_LIMIT:
         raise ValueError(f"L={L}, K={K}: the kernel's tables exceed "
                          f"{SMEM_LIMIT} bytes of shared memory")
     return ResamplerTable(
         plan, K, torch.as_tensor(row0, device=device),
         torch.as_tensor(taps, device=device),
-        torch.as_tensor(plan.matrix, device=device), q_per_block, span)
+        torch.as_tensor(plan.matrix, device=device), q_per_block, span,
+        smem_bytes)
 
 
 def resample_plain(planes, carry, table: ResamplerTable):
@@ -118,7 +122,20 @@ def resample_plain(planes, carry, table: ResamplerTable):
 @functools.cache
 def _launcher():
     return build.launcher("resample_poly", "dabmod_resample_poly", 8,
-                          ctypes.c_longlong, *[ctypes.c_int] * 6)
+                          ctypes.c_longlong, *[ctypes.c_int] * 7)
+
+
+def launch_shape(table: ResamplerTable) -> dict:
+    """The kernel's launch shape for `table` on the current CUDA device, as
+    its source reports it: threads a block, the dynamic shared memory it
+    launches with, and resident blocks an SM by the CUDA runtime's
+    occupancy calculator.  Builds the kernel's library if needed."""
+    threads, blocks = build.query("resample_poly",
+                                  "dabmod_resample_poly_shape", 2,
+                                  table.smem_bytes)
+    return {"threads_per_block": threads,
+            "dynamic_smem_bytes": table.smem_bytes,
+            "resident_blocks_per_sm": blocks}
 
 
 def resample(planes, carry, table: ResamplerTable):
@@ -160,7 +177,7 @@ def resample(planes, carry, table: ResamplerTable):
                      carry[1].data_ptr(), table.row0.data_ptr(),
                      table.taps.data_ptr(), out_r.data_ptr(),
                      out_i.data_ptr(), n, h2, plan.L, plan.M, table.n_taps,
-                     table.q_per_block, table.span,
+                     table.q_per_block, table.span, table.smem_bytes,
                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(

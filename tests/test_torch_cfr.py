@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import fft_core_model as core
 from dabmod_tpu import tables as jt
 from dabmod_tpu.ops import fft as jfft
 from dabmod_tpu.ops import ofdm as jofdm
@@ -146,6 +147,49 @@ def test_cfr_ops_match_reference():
     for g, r in zip(out, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r),
                                    atol=2e-5 * scale)
+
+
+def _np_clip(v, limit2):
+    """amp_clip on complex64 registers: (clipped, over mask)."""
+    m2 = (v.real * v.real + v.imag * v.imag).astype(np.float32)
+    over = m2 > np.float32(limit2)
+    scale = np.where(over, np.sqrt(np.float32(limit2)
+                                   / np.where(m2 > 0, m2, 1)), 1)
+    return (v * scale.astype(np.float32)).astype(np.complex64), over
+
+
+@pytest.mark.parametrize("spacing", [256, 512, 1024, 2048])
+def test_cfr_register_flow_matches_plain(spacing):
+    """K2's data flow (csrc/ofdm_cfr.cu) on the FFT core's register layout,
+    transcribed to NumPy: B gathered into the registers, x = inverse(B),
+    the clip, S = forward(c) / N in B's registers, the error against B
+    elementwise, out = inverse(S + e).  Equals the plain K2 within
+    2e-5*max|ref|, with the clip counts within the threshold margin."""
+    mode = MODES[spacing]
+    table = _table(mode)
+    x, clip = _inputs(mode, seed=20 + mode, batch=1, symbols=1)
+    car = np.concatenate([(x[0] + 1j * x[1]).astype(np.complex64)[0, 0],
+                          np.zeros(1, np.complex64)])        # the zero slot
+    idx = core.register_index(spacing)
+    b = car[table.gather.numpy()[idx]]
+    xs = core.core_inverse(b, table)
+    c, over = _np_clip(xs, ofdm.f32_square(clip))
+    s = (core.core_forward(c, table) * np.float32(1.0 / spacing)).astype(
+        np.complex64)
+    e, over_e = _np_clip(b - s, ofdm.f32_square(ERROR_CLIP))
+    out = core.core_inverse(s + e, table)
+    planes = tuple(torch.as_tensor(a) for a in x)
+    (rr, ri), st = ofdm_kernel.ofdm_cfr_backend_plain(planes, table, clip,
+                                                      ERROR_CLIP)
+    ref = (rr + 1j * ri).numpy()[0, 0]
+    np.testing.assert_allclose(out, ref[idx], rtol=0,
+                               atol=2e-5 * np.abs(ref).max())
+    margin = ofdm_kernel.cfr_threshold_margin(planes, table, clip,
+                                              ERROR_CLIP)[0, 0].numpy()
+    assert over_e.sum() > 0
+    for got, lane, k in ((over, ofdm_kernel.ST_NCLIP, 0),
+                         (over_e, ofdm_kernel.ST_NERRCLIP, 1)):
+        assert abs(int(got.sum()) - int(st[0, 0, lane])) <= margin[k]
 
 
 def test_null_symbol_passes_unchanged():

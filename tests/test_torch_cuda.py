@@ -43,16 +43,20 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", [1, 2, 3, 4])
-def test_ofdm_kernel_matches_plain(card, mode):
+def _mode_table(mode, card):
     src, valid = tables.bin_map(mode)
-    table = ofdm_kernel.make_table(tables.freq_interleave_inverse(mode)[src],
-                                   valid, card)
-    rng = np.random.default_rng(mode)
-    shape = (3, 11, tables.mode_params(mode).nb_carriers)
-    x = tuple(torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
-                              device=card) for _ in range(2))
+    return ofdm_kernel.make_table(tables.freq_interleave_inverse(mode)[src],
+                                  valid, card)
+
+
+def _planes(card, seed, shape):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.standard_normal(shape).astype(
+        np.float32), device=card) for _ in range(2))
+
+
+def _check_ofdm(x, table):
+    """K1 against its plain version; returns the plain samples."""
     before = ofdm_kernel.ofdm_backend.launches
     got = ofdm_kernel.ofdm_backend(x, table)
     torch.cuda.synchronize()
@@ -60,37 +64,29 @@ def test_ofdm_kernel_matches_plain(card, mode):
     ref = ofdm_kernel.ofdm_backend_plain(x, table)
     scale = float(ref[0].abs().max())
     for g, r in zip(got, ref):
-        assert g.device.type == "cuda" and g.shape == (3, 11, table.n)
+        assert g.device.type == "cuda" and g.shape == (*x[0].shape[:2],
+                                                       table.n)
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    atol=2e-5 * scale)
+    return ref
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", [1, 2, 3, 4])
-def test_ofdm_cfr_kernel_matches_plain(card, mode):
-    src, valid = tables.bin_map(mode)
-    table = ofdm_kernel.make_table(tables.freq_interleave_inverse(mode)[src],
-                                   valid, card)
-    rng = np.random.default_rng(10 + mode)
-    shape = (3, 11, tables.mode_params(mode).nb_carriers)
-    x = tuple(torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
-                              device=card) for _ in range(2))
-    x[0][0, 0] = 0.0            # an all-zero (NULL) symbol
-    x[1][0, 0] = 0.0
-    td = ofdm_kernel.ofdm_backend_plain(x, table)
-    clip = 1.2 * float(torch.sqrt(td[0] ** 2 + td[1] ** 2).mean())
+def _check_cfr(x, table, clip, error_clip):
+    """K2 against its plain version; returns the kernel's statistics."""
     before = ofdm_kernel.ofdm_cfr_backend.launches
-    got, st = ofdm_kernel.ofdm_cfr_backend(x, table, clip, 0.5)
+    got, st = ofdm_kernel.ofdm_cfr_backend(x, table, clip, error_clip)
     torch.cuda.synchronize()
     assert ofdm_kernel.ofdm_cfr_backend.launches == before + 1
-    ref, ref_st = ofdm_kernel.ofdm_cfr_backend_plain(x, table, clip, 0.5)
+    ref, ref_st = ofdm_kernel.ofdm_cfr_backend_plain(x, table, clip,
+                                                     error_clip)
     scale = float(ref[0].abs().max())
     for g, r in zip(got, ref):
-        assert g.device.type == "cuda" and g.shape == (3, 11, table.n)
+        assert g.device.type == "cuda" and g.shape == (*x[0].shape[:2],
+                                                       table.n)
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    atol=2e-5 * scale)
     st, ref_st = st.cpu().numpy(), ref_st.cpu().numpy()
-    margin = ofdm_kernel.cfr_threshold_margin(x, table, clip, 0.5)
+    margin = ofdm_kernel.cfr_threshold_margin(x, table, clip, error_clip)
     margin = margin.cpu().numpy()
     for lane, k in ((ofdm_kernel.ST_NCLIP, 0), (ofdm_kernel.ST_NERRCLIP, 1)):
         assert (np.abs(st[..., lane] - ref_st[..., lane])
@@ -98,7 +94,62 @@ def test_ofdm_cfr_kernel_matches_plain(card, mode):
     for lane in range(ofdm_kernel.ST_POW_BEFORE, ofdm_kernel.ST_PAD):
         np.testing.assert_allclose(st[..., lane], ref_st[..., lane],
                                    rtol=1e-4)
-    assert not st[0, 0].any() and not st[..., ofdm_kernel.ST_PAD].any()
+    assert not st[..., ofdm_kernel.ST_PAD].any()
+    return st
+
+
+def _clip_level(td):
+    return 1.2 * float(torch.sqrt(td[0] ** 2 + td[1] ** 2).mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_ofdm_kernel_matches_plain(card, mode):
+    table = _mode_table(mode, card)
+    _check_ofdm(_planes(card, mode, (3, 11, tables.mode_params(mode)
+                                     .nb_carriers)), table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_ofdm_cfr_kernel_matches_plain(card, mode):
+    table = _mode_table(mode, card)
+    x = _planes(card, 10 + mode, (3, 11, tables.mode_params(mode)
+                                  .nb_carriers))
+    x[0][0, 0] = 0.0            # an all-zero (NULL) symbol
+    x[1][0, 0] = 0.0
+    clip = _clip_level(ofdm_kernel.ofdm_backend_plain(x, table))
+    st = _check_cfr(x, table, clip, 0.5)
+    assert not st[0, 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symbols", [1, 13])
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_ofdm_kernels_odd_symbol_counts(card, mode, symbols):
+    """One symbol, and 13: a count that is not a multiple of the 2048/N
+    symbols a block carries (below N = 2048), so the last block is
+    ragged."""
+    table = _mode_table(mode, card)
+    x = _planes(card, 20 + mode + symbols,
+                (1, symbols, tables.mode_params(mode).nb_carriers))
+    clip = _clip_level(_check_ofdm(x, table))
+    _check_cfr(x, table, clip, 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_ofdm_cfr_kernel_clips_every_sample(card, mode):
+    """A symbol 10^4 times larger than the others: every one of its
+    samples is clipped, and its statistics still match."""
+    table = _mode_table(mode, card)
+    x = _planes(card, 30 + mode, (2, 5, tables.mode_params(mode)
+                                  .nb_carriers))
+    clip = _clip_level(ofdm_kernel.ofdm_backend_plain(x, table))
+    x[0][1, 2] *= 1e4
+    x[1][1, 2] *= 1e4
+    st = _check_cfr(x, table, clip, 0.5)
+    assert st[1, 2, ofdm_kernel.ST_NCLIP] == table.n
 
 
 @pytest.mark.cuda
@@ -131,6 +182,33 @@ def test_resampler_kernel_matches_plain(card, rate):
         tuple(v[128 * 150:] for v in x), mid, table)
     assert torch.equal(torch.cat([a_r, b_r]), got[0])
     assert torch.equal(torch.cat([a_i, b_i]), got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spacing", [256, 512, 1024, 2048])
+def test_ofdm_launch_shapes_match_the_wrapper(card, spacing):
+    """The block layout K1 and K2 launch with is the one their wrapper and
+    the CPU model of the FFT core (tests/fft_core_model.py) assume, and
+    each instance fits on an SM (the occupancy calculator gives at least
+    one block)."""
+    for cfr in (False, True):
+        shape = ofdm_kernel.launch_shape(spacing, cfr)
+        assert shape["threads_per_block"] == ofdm_kernel.THREADS_PER_BLOCK
+        assert (shape["symbols_per_block"]
+                == ofdm_kernel.symbols_per_block(spacing))
+        assert shape["resident_blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [4_096_000, 8_192_000, 3_072_000,
+                                  1_024_000])
+def test_resampler_launch_shape_fits(card, rate):
+    table = resampler_kernel.make_table(
+        PolyphasePlan.create(2_048_000, rate), card)
+    shape = resampler_kernel.launch_shape(table)
+    assert shape["dynamic_smem_bytes"] == table.smem_bytes
+    assert shape["threads_per_block"] >= 32
+    assert shape["resident_blocks_per_sm"] >= 1
 
 
 MOD_PATHS = {"main": {},

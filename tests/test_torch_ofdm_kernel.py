@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import fft_core_model as core
 from dabmod_tpu import tables as jt
 from dabmod_tpu.ops import ofdm_kernel as jkernel
 from dabmod_tpu_torch import tables
@@ -82,14 +83,90 @@ def test_table_contents():
     table = ofdm_kernel.make_table(*_carrier_map(1), "cpu")
     assert (table.n, table.log2n, table.n_carriers) == (2048, 11, 1536)
     assert table.src.dtype == torch.int32 and table.valid.dtype == torch.float32
-    assert table.twiddle.shape == (1024, 2)
-    m = np.arange(1024)
-    expect = np.exp(2j * np.pi * m / 2048)
+    assert table.gather.dtype == torch.int32
+    # part 1 [16, R0 = 8], then part 2 [16, N / 16 = 128]
+    assert table.twiddle.shape == (16 * 8 + 2048, 2)
+    r = np.arange(16)[:, None]
+    expect = np.exp(2j * np.pi * np.concatenate([
+        (r * np.arange(8) / 128.0).ravel(),
+        (r * np.arange(128) / 2048.0).ravel()]))
     tw = table.twiddle.numpy().astype(np.float64)
     # float64 values rounded once to float32
     np.testing.assert_allclose(tw[:, 0] + 1j * tw[:, 1], expect, atol=6e-8)
+    np.testing.assert_array_equal(
+        table.twiddle.numpy(),
+        np.stack([expect.real, expect.imag], -1).astype(np.float32))
     assert int(table.valid.sum()) == 1536 and float(table.valid[0]) == 0.0
     assert int(table.src[~table.valid.bool()].abs().sum()) == 0
+    # the kernels' gather: src where a carrier lands, the zero slot C else
+    valid = table.valid.bool()
+    assert torch.equal(table.gather[valid], table.src[valid])
+    assert bool((table.gather[~valid] == 1536).all())
+
+
+@pytest.mark.parametrize("spacing", [256, 512, 1024, 2048])
+def test_core_schedule_matches_numpy_fft(spacing):
+    """The kernels' pass schedule (tests/fft_core_model.py), fed the tables
+    make_table builds and the bins gathered as the kernels gather them
+    (zero slot included), equals np.fft within 2e-5*max|ref|: the inverse
+    leaves x[t + TS*m] in register m of thread t, and the forward transform
+    of x leaves bin t + TS*m in the register that held it before the
+    inverse."""
+    mode = MODES[spacing]
+    table = ofdm_kernel.make_table(*_carrier_map(mode), "cpu")
+    x = _inputs(mode, batch=1, symbols=1, seed=spacing)
+    car = (x[0] + 1j * x[1]).astype(np.complex64)[0, 0]
+    car = np.concatenate([car, np.zeros(1, np.complex64)])   # the zero slot
+    idx = core.register_index(spacing)
+    regs = car[table.gather.numpy()[idx]]
+    bins = np.zeros(spacing, np.complex128)
+    bins[idx] = regs
+    ref = np.fft.ifft(bins) * spacing
+    got = core.core_inverse(regs, table)
+    assert got.shape == (spacing // ofdm_kernel.POINTS, ofdm_kernel.POINTS)
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got, ref[idx], rtol=0, atol=2e-5 * scale)
+    back = core.core_forward(got, table)
+    ref_f = np.fft.fft(ref)
+    np.testing.assert_allclose(back, ref_f[idx], rtol=0,
+                               atol=2e-5 * np.abs(ref_f).max())
+    # the round trip is N x the bins, in the registers that held them
+    np.testing.assert_allclose(back / spacing, regs, rtol=0,
+                               atol=2e-5 * np.abs(regs).max())
+
+
+@pytest.mark.parametrize("spacing", [256, 512, 1024, 2048])
+def test_core_exchanges_are_bank_conflict_free(spacing):
+    """Every access of the two exchanges (csrc/fft_core.cuh): the kernels'
+    base-plus-constant slot is the padded slot of its index (pad1 for
+    exchange 1, pad2 for exchange 2, each one-to-one into a symbol's
+    N + N/16 floats), every index of the transform is written once, and
+    each warp-wide access (a block of THREADS_PER_BLOCK threads,
+    symbols_per_block(N) symbols at that stride) hits 32 distinct
+    shared-memory banks."""
+    n, ts = spacing, spacing // ofdm_kernel.POINTS
+    stride = n + ts
+    a = np.arange(n)
+    for pad in (core.pad1, lambda i: core.pad2(i, n)):
+        assert len(set(pad(a).tolist())) == n and pad(a).max() < stride
+    tid = np.arange(ofdm_kernel.THREADS_PER_BLOCK)
+    ls, t = tid // ts, tid % ts
+    assert ls.max() + 1 == ofdm_kernel.symbols_per_block(n)
+    for name, index, slot in core.slots(n):
+        pad = core.pad1 if name.startswith(("pass 0", "pass 1 read")) else \
+            (lambda i: core.pad2(i, n))
+        np.testing.assert_array_equal(slot, pad(index), err_msg=name)
+        assert sorted(index.ravel().tolist()) == list(range(n)), name
+        for k in np.ndindex(*slot.shape[1:]):
+            phys = ls * stride + slot[(t, *k)]
+            for w in range(tid.size // 32):
+                banks = phys[32 * w:32 * w + 32] % 32
+                assert len(set(banks.tolist())) == 32, (name, k, w)
+
+
+def test_symbols_per_block():
+    assert [ofdm_kernel.symbols_per_block(n)
+            for n in (256, 512, 1024, 2048)] == [8, 4, 2, 1]
 
 
 def test_table_rejects_bad_maps():
@@ -99,6 +176,11 @@ def test_table_rejects_bad_maps():
     with pytest.raises(ValueError):
         ofdm_kernel.make_table(np.concatenate([src, src]),
                                np.concatenate([valid, valid]), "cpu")
+    with pytest.raises(ValueError):      # below the FFT core's 256 points
+        ofdm_kernel.make_table(src[:128], valid[:128], "cpu")
+    full = np.ones(256, bool)                # more than 3/4 of the bins
+    with pytest.raises(ValueError):
+        ofdm_kernel.make_table(np.arange(256) % 200, full, "cpu")
     bad = src.copy()
     bad[5] = 5000
     with pytest.raises(ValueError):

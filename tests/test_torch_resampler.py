@@ -160,6 +160,21 @@ def test_kernel_sum_equals_plain(rate):
                                atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("rate", RATES)
+def test_table_stages_each_block_in_its_shared_memory(rate):
+    """A block's staged run covers the band of every output it computes,
+    and smem_bytes, which the launch passes, is the kernel's carve-up
+    (taps, row0, two planes of the run) within the static-launch limit."""
+    plan = _plan(rate)
+    table = rk.make_table(plan, "cpu")
+    L, K = plan.L, table.n_taps
+    last = (table.q_per_block - 1) * plan.M + int(table.row0.max()) + K
+    assert last <= table.span
+    assert table.q_per_block * L <= max(rk.OUT_PER_BLOCK, L)
+    assert table.smem_bytes == 4 * (L * K + L + 2 * table.span)
+    assert table.smem_bytes <= rk.SMEM_LIMIT
+
+
 def test_wrapper_checks_and_cpu_path_does_not_count():
     plan = _plan(8_192_000)
     table = rk.make_table(plan, "cpu")

@@ -1,0 +1,76 @@
+#!/usr/bin/env python3
+"""Time the OFDM kernels of one checkout on one CUDA card: K1
+(ofdm_backend, csrc/ofdm_ifft.cu) and K2 (ofdm_cfr_backend,
+csrc/ofdm_cfr.cu), through chip_smoke.py's phase-5 helpers: phase 2's TM I
+input (24 TFs) and K2 clip, the same input sets cycled past the L2, the
+same calls, and the card spinning while the host issues 20 back-to-back
+calls.  The only difference from phase 5 is the package imported.
+
+    python3 time_kernels.py [--tree DIR] [--label NAME]
+
+DIR (default: this script's directory) is the checkout whose
+dabmod_tpu_torch is imported, built and timed; the harness is always this
+script's chip_smoke.py.  To compare two checkouts, run it for each in one
+call on one card, in turns (a, b, b, a).  Prints one JSON line: the label,
+the card, and for each kernel its max abs error against its plain
+version and its median device and host-issue ms per call.
+"""
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+    # the checkout's package; the harness of this script's chip_smoke.py
+    sys.path.insert(0, os.path.abspath(args.tree))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import torch
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is False: this needs a CUDA card")
+    from dabmod_tpu_torch import tables
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+    # phase 2's TM I input: the first draw from its seed
+    p = tables.mode_params(1)
+    planes = cs.random_planes(torch, np.random.default_rng(cs.SEED),
+                              (cs.BATCH_TF, p.nb_symbols + 1, p.nb_carriers))
+    table = cs.mode_table(1, "cuda")
+    sets = cs.ofdm_timing_sets(torch, planes)
+    calls = cs.ofdm_calls(table, cs.k2_clip(torch, planes, table))
+    cpm = cs.sleep_cycles_per_ms(torch)
+    rec = {"label": args.label, "tree": os.path.abspath(args.tree),
+           "card": card}
+    for name, fns in calls.items():
+        got, want = fns[""](planes), fns["plain_"](planes)
+        if name == "ofdm_cfr":          # the samples; the stats aside
+            got, want = got[0], want[0]
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        tol = 2e-5 * max(float(w.abs().max()) for w in want)
+        cs.check(err <= tol, f"{name}: err {err} > {tol}")
+        t = cs.kernel_times(torch, {"": (fns[""], sets)}, cpm)
+        rec[name] = {"max_abs_err": err, **t}
+    print(json.dumps(rec), flush=True)
+
+
+if __name__ == "__main__":
+    main()
