@@ -11,8 +11,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    registers, shared memory and spills as ptxas reports them, and for each
    instance of K1 and K2 its launch shape as the source reports it on the
    card (threads and symbols a block, resident blocks an SM from the CUDA
-   runtime's occupancy calculator); fails if an instance of K1 or K2
-   spills or launches another block layout than ofdm_kernel assumes.
+   runtime's occupancy calculator), and for each instance of K3 the same
+   at a plan that takes it (its compile-time M or 0, KP and R as the
+   source builds them); fails if an instance of K1, K2 or K3 spills or
+   launches another block layout than ofdm_kernel or resampler_kernel
+   assumes.
 2. Each kernel against its plain PyTorch version on the card, on inputs
    made from a numpy seed:
    * K1, the OFDM IFFT, at all four spacings (TM I-IV), with each mode's
@@ -24,7 +27,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      samples within 1e-5 (relative) of a threshold, which it prints; and
      on one symbol and on 13;
    * K3, the polyphase resampler, at 3.072, 4.096 and 8.192 MS/s and
-     (resampler_mode="poly") 1.024 MS/s, so L/M = 3/2, 2, 4 and 1/2, on a
+     (resampler_mode="poly") 1.024 and 1.792 MS/s, so L/M = 3/2, 2, 4, 1/2
+     and 7/8 (the last through the kernel's run-time-M instance), on a
      stream of the main path's length (24 TFs), and two half-stream calls
      with the carry against one call.
 3. The front end against the reference goldens in tests/golden/
@@ -55,7 +59,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    is kept beside it; a call that synchronises, such as the plain CFR, is
    timed without the spin and marked host_paced), its plain version, one
    PyTorch library call as a yardstick where one computes the same
-   function, and the kernel's bound from this run's shapes.
+   function, and the kernel's bound from this run's shapes; K3 at both
+   of the paths' rates, 8.192 and 3.072 MS/s.
 
 TF32 is switched off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False): every tolerance below assumes fp32
@@ -92,9 +97,15 @@ CFR_8M192 = dict(enable_cfr=True, cfr_clip=40.0, cfr_error_clip=3.0,
 # CFR where the error clip acts (tests/test_quality.py:151-154), L/M = 3/2
 CFR30_3M072 = dict(enable_cfr=True, cfr_clip=30.0, cfr_error_clip=0.1,
                    output_rate=3_072_000)
-# K3's rates in phase 2: L/M = 3/2, 1/2 (decimation), 2, 4
+# K3's rates in phase 2: L/M = 3/2, 1/2 (decimation), 2, 4, and 7/8 (an
+# M the kernel takes at run time)
 RES_RATES = ((3_072_000, "auto"), (1_024_000, "poly"), (4_096_000, "auto"),
-             (8_192_000, "auto"))
+             (8_192_000, "auto"), (1_792_000, "poly"))
+# a plan for each instance of K3 (resampler_kernel.INSTANCES), in order
+K3_INSTANCE_RATES = (8_192_000, 3_072_000, 1_024_000, 1_792_000, 1_536_000,
+                     512_000)
+# the rates phase 5 times K3 at: those of the resampled paths
+K3_TIMED_RATES = (8_192_000, 3_072_000)
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and fp32 (non-tensor) peak
 HBM_BYTES_PER_S = 3.35e12
@@ -294,21 +305,54 @@ def phase_card_and_build(torch):
                       f"{rec['symbols_per_block']} symbols a block, "
                       f"ofdm_kernel assumes {K.THREADS_PER_BLOCK} and "
                       f"{K.symbols_per_block(n)}")
+        if name == "resample_poly":
+            check_resampler_instances(ptxas[name])
         log(f"    {name}: {json.dumps(ptxas[name])}")
     return card, ptxas
 
 
+def check_resampler_instances(ptxas):
+    """Each K3 instance: no spills, and at a plan that takes it, the
+    instance, threads and shared memory that resampler_kernel assumes,
+    with at least one block resident an SM."""
+    from dabmod_tpu_torch.ops import resampler_kernel as R
+    from dabmod_tpu_torch.ops.filters import PolyphasePlan
+    check(len(K3_INSTANCE_RATES) == len(R.INSTANCES),
+          "a K3 instance has no plan in K3_INSTANCE_RATES")
+    for i, (inst, rate) in enumerate(zip(R.INSTANCES, K3_INSTANCE_RATES)):
+        key = "_".join(map(str, inst))
+        check(key in ptxas, f"resample_poly: ptxas reports no instance "
+              f"{key}")
+        rec = ptxas[key]
+        check(rec["spill_stores"] == 0, f"resample_poly {key}: "
+              f"{rec['spill_stores']} bytes of spill stores")
+        table = R.make_table(PolyphasePlan.create(2_048_000, rate), "cuda")
+        check(table.layout.instance == i, f"{rate} takes K3 instance "
+              f"{table.layout.instance}, not {i}")
+        shape = R.launch_shape(table)
+        check(shape["instance"] == list(inst)
+              and shape["threads_per_block"] == R.THREADS
+              and shape["resident_blocks_per_sm"] >= 1,
+              f"resample_poly {key}: the source reports {shape}, "
+              f"resampler_kernel assumes {inst} and {R.THREADS} threads")
+        rec.update(shape, plan_rate=rate, q_per_chunk=table.layout
+                   .q_per_chunk, groups=table.layout.groups,
+                   tiles=table.layout.tiles)
+
+
 def parse_ptxas(text: str) -> dict:
     """Registers, shared memory and spill stores of each kernel in nvcc's
-    -Xptxas -v output, keyed by the kernel's template argument (log2 N for
-    the OFDM kernels) or "" for a kernel that is not a template."""
+    -Xptxas -v output, keyed by the kernel's integer template arguments
+    joined by "_" (log2 N for the OFDM kernels, "M_KP_R" for K3's
+    instances) or "" for a kernel that is not a template."""
     out, key = {}, None
     for ln in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", ln)
         if m:
-            tmpl = re.search(r"ILi(\d+)E", m.group(1))
-            key = tmpl.group(1) if tmpl else ""
+            tmpl = re.search(r"I((?:Li\d+E)+)E", m.group(1))
+            key = ("_".join(re.findall(r"Li(\d+)E", tmpl.group(1)))
+                   if tmpl else "")
             out.setdefault(key, {"registers": 0, "smem_bytes": 0,
                                  "spill_stores": 0})
             continue
@@ -448,13 +492,14 @@ def phase_resampler(torch, rng):
     """K3 against its plain version on a stream of the main path's length
     (rtol 1e-5, atol 1e-5*max|ref|: fp32 sums of the band in other
     orders), and two half-stream calls against one, with the plan the
-    modulator takes at each of RES_RATES."""
+    modulator takes at each of RES_RATES.  Returns, for each of
+    K3_TIMED_RATES, its input, carry, table and max abs error."""
     from dabmod_tpu_torch import tables
     from dabmod_tpu_torch.config import ModSettings
     from dabmod_tpu_torch.models.modulator import resampler_plan
     from dabmod_tpu_torch.ops import resampler_kernel as R
     n = BATCH_TF * tables.mode_params(1).tf_samples
-    res = None
+    res = {}
     for rate, mode in RES_RATES:
         plan = resampler_plan(ModSettings(output_rate=rate,
                                           resampler_mode=mode))
@@ -476,15 +521,17 @@ def phase_resampler(torch, rng):
         split = all(torch.equal(torch.cat([u, v]), g)
                     for u, v, g in zip(a, b, got))
         log(f"[2] resample_poly {rate / 1e6:g} MS/s ({mode}) L={plan.L} "
-            f"M={plan.M} K={table.n_taps}, {table.smem_bytes} B of dynamic "
-            f"shared memory a block, "
+            f"M={plan.M} K={table.n_taps}, instance "
+            f"{R.INSTANCES[table.layout.instance]}, "
+            f"{table.layout.q_per_chunk * plan.L} outputs a chunk, "
+            f"{table.layout.smem_bytes} B of dynamic shared memory a block, "
             f"{n} -> {got[0].shape[0]} samples a plane: "
             f"max abs err {err:.3e} (rtol 1e-5, atol {1e-5 * scale:.3e}); "
             f"two half-stream calls equal one: {split}")
         check(ok, f"resample_poly {rate}: outside rtol 1e-5 / atol")
         check(split, f"resample_poly {rate}: split stream differs")
-        if rate == 8_192_000:
-            res = (x, carry, table, err)
+        if rate in K3_TIMED_RATES:
+            res[rate] = (x, carry, table, err)
     return res
 
 
@@ -564,13 +611,13 @@ def phase_paths(torch):
     """Each path: two consecutive batch_tf=24 batches per (ensemble,
     format) on the card, state carried, against the port on the CPU on the
     same ETI.  Returns each kernel's launch count, summed over the card
-    runs of the paths that use it."""
+    runs of the paths that use it, and each path's counts."""
     from dabmod_tpu_torch.eti import parse_eti_frames, synth_eti_batch
     from dabmod_tpu_torch.models import Modulator, make_default_layout
     from dabmod_tpu_torch.ops import ofdm_kernel
 
     kernels = _kernels()
-    launches = {}
+    launches, per_path = {}, {}
     for path, (ensembles, extra, used) in _paths().items():
         cases = []
         for name, specs in ensembles:
@@ -615,6 +662,7 @@ def phase_paths(torch):
         gpu, _ = drive("cuda")
         torch.cuda.synchronize()
         counts = {k: f.launches for k, f in kernels.items()}
+        per_path[path] = counts
         log(f"[4] {path} on the card: {len(cases)} x 2 batches in "
             f"{time.perf_counter() - t0:.1f} s; kernel launches {counts}")
         for k in used:
@@ -634,7 +682,7 @@ def phase_paths(torch):
                 if extra.get("cfr_error_clip", np.inf) < 1.0:
                     check(int(cs["cfr_errclip"].min()) > 0,
                           f"{tag}: the error clip never acted in a TF")
-    return launches
+    return launches, per_path
 
 
 def compare_batch(tag, fmt, g, gs, c, cs, n_out, margin):
@@ -885,18 +933,12 @@ def time_ofdm_cfr(torch, cpm, sets, table, calls, clip, err, stats,
     return k
 
 
-def time_resample(torch, cpm, x, carry, table, err, launches, ptxas):
-    from dabmod_tpu_torch.ops import resampler_kernel as R
+def resample_library(torch, table):
+    """The yardstick: one cuDNN transposed convolution with stride L and
+    the plan's prototype filter, re and im as a batch of two, read at every
+    M-th output (a view: the convolution computes M times the outputs);
+    with a zero carry its first n*L/M outputs are the resampler's."""
     plan = table.plan
-    n = x[0].shape[0]
-    n_out = n * plan.L // plan.M
-    rng = np.random.default_rng(SEED + 4)
-    sets = [x] + [random_planes(torch, rng, (n,))
-                  for _ in range(RES_L2_SETS - 1)]
-
-    # the yardstick: one cuDNN transposed convolution with stride L and the
-    # plan's prototype filter, re and im as a batch of two; with a zero
-    # carry its first n_out outputs are the resampler's
     taps = table.taps.cpu().numpy()
     row0 = table.row0.cpu().numpy()
     w = np.zeros(2 * plan.half * plan.L + 1, np.float32)
@@ -906,32 +948,60 @@ def time_resample(torch, cpm, x, carry, table, err, launches, ptxas):
             if abs(tt) <= plan.half * plan.L:
                 w[tt + plan.half * plan.L] = taps[p, k]
     weight = torch.as_tensor(w, device="cuda").view(1, 1, -1)
-    stacked = [torch.stack(s).unsqueeze(1) for s in sets]   # [2, 1, n]
 
     def library(s):
-        return torch.nn.functional.conv_transpose1d(s, weight,
-                                                    stride=plan.L)
+        return torch.nn.functional.conv_transpose1d(
+            s, weight, stride=plan.L)[..., ::plan.M]
+    return library
+
+
+def resample_calls(torch, x, carry, table) -> dict:
+    """The timed calls of K3 (""), its plain version ("plain_") and the
+    yardstick ("library_"), each with its input sets: x and RES_L2_SETS - 1
+    more random streams of its length, larger than the card's L2
+    together."""
+    from dabmod_tpu_torch.ops import resampler_kernel as R
+    rng = np.random.default_rng(SEED + 4)
+    sets = [x] + [random_planes(torch, rng, x[0].shape)
+                  for _ in range(RES_L2_SETS - 1)]
+    stacked = [torch.stack(s).unsqueeze(1) for s in sets]   # [2, 1, n]
+    return {"": (lambda s: R.resample(s, carry, table), sets),
+            "plain_": (lambda s: R.resample_plain(s, carry, table), sets),
+            "library_": (resample_library(torch, table), stacked)}
+
+
+def time_resample(torch, cpm, x, carry, table, err, launches, ptxas):
+    from dabmod_tpu_torch.ops import resampler_kernel as R
+    plan = table.plan
+    n = x[0].shape[0]
+    n_out = n * plan.L // plan.M
+    calls = resample_calls(torch, x, carry, table)
+    library, stacked = calls["library_"]
     zero = tuple(torch.zeros_like(c) for c in carry)
     (yr, yi), _ = R.resample(x, zero, table)
     z = library(stacked[0])[:, 0, :n_out]
     scale = float(torch.stack([yr, yi]).abs().max())
     lib_err = float((z - torch.stack([yr, yi])).abs().max())
-    log(f"[5] conv_transpose1d yardstick against the kernel (zero carry): "
-        f"max abs err {lib_err:.3e} (scale {scale:.3e})")
+    log(f"[5] conv_transpose1d yardstick against the kernel at "
+        f"{plan.L}/{plan.M} (zero carry): max abs err {lib_err:.3e} "
+        f"(scale {scale:.3e})")
     check(lib_err <= 1e-5 * scale, "conv_transpose1d computes another "
           "function than the resampler")
 
-    t = kernel_times(torch, {
-        "": (lambda s: R.resample(s, carry, table), sets),
-        "plain_": (lambda s: R.resample_plain(s, carry, table), sets),
-        "library_": (library, stacked)}, cpm)
+    t = kernel_times(torch, calls, cpm)
     # least work: each input and carry sample read once, each output
     # written once, the tables read once; 2 flop per non-zero tap of the
     # band for every output of both planes
+    taps = table.taps.cpu().numpy()
     nnz = int(np.count_nonzero(taps))
-    b = bound(2 * 4 * (n + 2 * plan.half + n_out) + taps.nbytes + row0.nbytes,
-              2 * 2 * (n // plan.M) * nnz)
-    k = {"name": "resample_poly", "route": "cuda",
+    b = bound(2 * 4 * (n + 2 * plan.half + n_out) + taps.nbytes
+              + table.row0.numel() * 4, 2 * 2 * (n // plan.M) * nnz)
+    lay = table.layout
+    inst = R.INSTANCES[lay.instance]
+    rate = 2_048_000 * plan.L // plan.M
+    name = "resample_poly" if rate == 8_192_000 else (
+        f"resample_poly_{rate // 1_000_000}m{rate // 1000 % 1000:03d}")
+    k = {"name": name, "route": "cuda",
          "source": "dabmod_tpu_torch/ops/csrc/resample_poly.cu",
          "replaces": "dabmod_tpu/ops/resampler_kernel.py:140",
          "launches": launches, "max_abs_err": err,
@@ -939,24 +1009,29 @@ def time_resample(torch, cpm, x, carry, table, err, launches, ptxas):
          "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
          "library_ms": t["library_ms"],
          "library_call": "torch.nn.functional.conv_transpose1d, stride L, "
-                         "the plan's prototype filter (cuDNN, no TF32)",
+                         "the plan's prototype filter (cuDNN, no TF32), "
+                         "every M-th output",
          **{key: v for key, v in t.items()
             if key.endswith(("_warm_l2", "host_issue_ms", "host_paced"))},
-         "l2_sets": RES_L2_SETS, "L": plan.L, "M": plan.M,
+         "l2_sets": RES_L2_SETS, "rate": rate, "L": plan.L, "M": plan.M,
          "taps": table.n_taps, "samples_in": n, "samples_out": n_out,
          **R.launch_shape(table), "symbols_per_block": None,
-         "outputs_per_block": table.q_per_block * plan.L, **ptxas[""],
+         "outputs_per_chunk": lay.q_per_chunk * plan.L,
+         **{key: v for key, v in ptxas["_".join(map(str, inst))].items()
+            if key in ("registers", "smem_bytes", "spill_stores")},
          "bytes": b["bytes"], "flops": b["flops"]}
-    log(f"[5] resample_poly {n} -> {n_out} samples a plane (L={plan.L}, "
-        f"M={plan.M}): {t['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms by "
-        f"{k['bound_by']}; plain {t['plain_ms']:.4f} ms; conv_transpose1d "
-        f"{t['library_ms']:.4f} ms; one input set reused: "
-        f"{t['ms_warm_l2']:.4f} / {t['plain_ms_warm_l2']:.4f} / "
-        f"{t['library_ms_warm_l2']:.4f} ms)")
+    log(f"[5] {name} {n} -> {n_out} samples a plane (L={plan.L}, "
+        f"M={plan.M}, instance {inst}): {t['ms']:.4f} ms (bound "
+        f"{k['bound_ms']:.4f} ms by {k['bound_by']}; plain "
+        f"{t['plain_ms']:.4f} ms; conv_transpose1d {t['library_ms']:.4f} ms;"
+        f" one input set reused: {t['ms_warm_l2']:.4f} / "
+        f"{t['plain_ms_warm_l2']:.4f} / {t['library_ms_warm_l2']:.4f} ms)")
     return k
 
 
 def phase_times(torch, inputs, launches, ptxas):
+    """Phase 5; `launches` is phase 4's (summed over paths, per path)."""
+    total, per_path = launches
     for path, (ensembles, extra, _used) in _paths().items():
         time_path(torch, path, ensembles[0][1], extra)
     cpm = sleep_cycles_per_ms(torch)
@@ -964,14 +1039,19 @@ def phase_times(torch, inputs, launches, ptxas):
     planes, table, clip = inputs["ofdm"]
     sets = ofdm_timing_sets(torch, planes)
     calls = ofdm_calls(table, clip)
+    # K3's launches at each rate: those of the path that runs at it
+    res_paths = {8_192_000: "realistic17_cfr_8m192",
+                 3_072_000: "realistic17_cfr30_3m072"}
     return [time_ofdm_ifft(torch, cpm, sets, table, calls["ofdm_ifft"],
-                           inputs["ofdm_ifft"], launches["ofdm_ifft"],
+                           inputs["ofdm_ifft"], total["ofdm_ifft"],
                            ptxas["ofdm_ifft"]),
             time_ofdm_cfr(torch, cpm, sets, table, calls["ofdm_cfr"], clip,
-                          *inputs["ofdm_cfr"], launches["ofdm_cfr"],
+                          *inputs["ofdm_cfr"], total["ofdm_cfr"],
                           ptxas["ofdm_cfr"]),
-            time_resample(torch, cpm, *inputs["resample_poly"],
-                          launches["resample_poly"], ptxas["resample_poly"])]
+            *[time_resample(torch, cpm, *inputs["resample_poly"][rate],
+                            per_path[res_paths[rate]]["resample_poly"],
+                            ptxas["resample_poly"])
+              for rate in K3_TIMED_RATES]]
 
 
 def main():

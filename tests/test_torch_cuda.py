@@ -16,7 +16,7 @@ counts.  CFR clip counts may differ from the plain version's by the
 samples that lie within 1e-5 (relative) of a threshold
 (ofdm_kernel.cfr_threshold_margin), where fp32 sums in other orders may
 fall either side; the power lanes rtol 1e-4.  The resampler within rtol
-1e-5, atol 1e-5*max|ref| (fp32 sums of the band, 33 or 65 taps, in other
+1e-5, atol 1e-5*max|ref| (fp32 sums of the band, 33 to 127 taps, in other
 orders).  TF32 is off.
 """
 import numpy as np
@@ -152,14 +152,19 @@ def test_ofdm_cfr_kernel_clips_every_sample(card, mode):
     assert st[1, 2, ofdm_kernel.ST_NCLIP] == table.n
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rate", [4_096_000, 8_192_000, 3_072_000,
-                                  1_024_000])      # L/M = 2, 4, 3/2, 1/2
-def test_resampler_kernel_matches_plain(card, rate):
+# L/M = 2, 4, 3/2, 1/2 (compile-time M), 3/4, 7/8, 17/16, 1/4 (run-time M)
+RES_RATES = [4_096_000, 8_192_000, 3_072_000, 1_024_000, 1_536_000,
+             1_792_000, 2_176_000, 512_000]
+
+
+def _check_resampler(card, rate, n, seed):
+    """K3 against its plain version on an n-sample stream: the samples
+    within rtol 1e-5, atol 1e-5*max|ref|, the carry equal; returns the
+    plan, table, input, carry and the kernel's output."""
     plan = PolyphasePlan.create(2_048_000, rate)
     table = resampler_kernel.make_table(plan, card)
-    rng = np.random.default_rng(rate // 1000)
-    x = tuple(torch.as_tensor(rng.standard_normal(128 * 300).astype(
+    rng = np.random.default_rng(seed)
+    x = tuple(torch.as_tensor(rng.standard_normal(n).astype(
         np.float32), device=card) for _ in range(2))
     c = tuple(torch.as_tensor(rng.standard_normal(2 * plan.half).astype(
         np.float32), device=card) for _ in range(2))
@@ -170,11 +175,19 @@ def test_resampler_kernel_matches_plain(card, rate):
     ref, ref_carry = resampler_kernel.resample_plain(x, c, table)
     scale = float(ref[0].abs().max())
     for g, r in zip(got, ref):
-        assert g.shape == (128 * 300 * plan.L // plan.M,)
+        assert g.shape == (n * plan.L // plan.M,)
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    rtol=1e-5, atol=1e-5 * scale)
     for g, r in zip(carry, ref_carry):
         assert torch.equal(g, r)
+    return plan, table, x, c, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", RES_RATES)
+def test_resampler_kernel_matches_plain(card, rate):
+    plan, table, x, c, got = _check_resampler(card, rate, 128 * 300,
+                                              rate // 1000)
     # two half-stream calls with the carry == one call
     (a_r, a_i), mid = resampler_kernel.resample(
         tuple(v[:128 * 150] for v in x), c, table)
@@ -182,6 +195,31 @@ def test_resampler_kernel_matches_plain(card, rate):
         tuple(v[128 * 150:] for v in x), mid, table)
     assert torch.equal(torch.cat([a_r, b_r]), got[0])
     assert torch.equal(torch.cat([a_i, b_i]), got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 128 * 37])
+@pytest.mark.parametrize("rate", RES_RATES)
+def test_resampler_kernel_short_and_ragged_streams(card, rate, n):
+    """One 128-sample frame (one block, mostly empty), and 37 frames: not
+    a multiple of a block's outputs, so the last block is ragged."""
+    plan, table, *_ = _check_resampler(card, rate, n, rate // 1000 + n)
+    assert (n // plan.M) % table.layout.q_per_chunk
+
+
+@pytest.mark.cuda
+def test_resampler_refuses_outputs_it_cannot_store(card):
+    """The kernel stores 16 bytes at a time: an output buffer that is not
+    16-byte aligned is refused before any launch."""
+    plan = PolyphasePlan.create(2_048_000, 8_192_000)
+    table = resampler_kernel.make_table(plan, card)
+    x = tuple(torch.zeros(128, device=card) for _ in range(2))
+    c = tuple(torch.zeros(2 * plan.half, device=card) for _ in range(2))
+    buf = torch.empty(512 + 1, device=card)
+    before = resampler_kernel.resample.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        resampler_kernel._launch(x, c, table, buf[1:], buf[:512])
+    assert resampler_kernel.resample.launches == before
 
 
 @pytest.mark.cuda
@@ -200,14 +238,18 @@ def test_ofdm_launch_shapes_match_the_wrapper(card, spacing):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rate", [4_096_000, 8_192_000, 3_072_000,
-                                  1_024_000])
+@pytest.mark.parametrize("rate", RES_RATES)
 def test_resampler_launch_shape_fits(card, rate):
+    """The source builds the instance make_table chose (its M, KP and R),
+    with the wrapper's threads, and it fits on an SM at the table's
+    shared memory."""
     table = resampler_kernel.make_table(
         PolyphasePlan.create(2_048_000, rate), card)
     shape = resampler_kernel.launch_shape(table)
-    assert shape["dynamic_smem_bytes"] == table.smem_bytes
-    assert shape["threads_per_block"] >= 32
+    assert shape["dynamic_smem_bytes"] == table.layout.smem_bytes
+    assert (shape["instance"]
+            == list(resampler_kernel.INSTANCES[table.layout.instance]))
+    assert shape["threads_per_block"] == resampler_kernel.THREADS
     assert shape["resident_blocks_per_sm"] >= 1
 
 

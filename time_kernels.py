@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time the OFDM kernels of one checkout on one CUDA card: K1
-(ofdm_backend, csrc/ofdm_ifft.cu) and K2 (ofdm_cfr_backend,
-csrc/ofdm_cfr.cu), through chip_smoke.py's phase-5 helpers: phase 2's TM I
-input (24 TFs) and K2 clip, the same input sets cycled past the L2, the
-same calls, and the card spinning while the host issues 20 back-to-back
-calls.  The only difference from phase 5 is the package imported.
+"""Time the kernels of one checkout on one CUDA card: K1 (ofdm_backend,
+csrc/ofdm_ifft.cu), K2 (ofdm_cfr_backend, csrc/ofdm_cfr.cu) and K3
+(resample, csrc/resample_poly.cu) at 8.192 and 3.072 MS/s, through
+chip_smoke.py's phase-5 helpers: phase 2's TM I input (24 TFs) and K2
+clip, K3 on a stream of 24 TFs from its own seed, the same input sets
+cycled past the L2, the same calls, and the card spinning while the host
+issues 20 back-to-back calls.  Besides the package imported, only K3's
+input differs from phase 5 (its draw, not its shape).
 
     python3 time_kernels.py [--tree DIR] [--label NAME]
 
@@ -42,6 +44,8 @@ def main():
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is False: this needs a CUDA card")
     from dabmod_tpu_torch import tables
+    from dabmod_tpu_torch.ops import resampler_kernel as R
+    from dabmod_tpu_torch.ops.filters import PolyphasePlan
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
@@ -69,6 +73,25 @@ def main():
         cs.check(err <= tol, f"{name}: err {err} > {tol}")
         t = cs.kernel_times(torch, {"": (fns[""], sets)}, cpm)
         rec[name] = {"max_abs_err": err, **t}
+    rng = np.random.default_rng(cs.SEED + 5)
+    n = cs.BATCH_TF * p.tf_samples
+    for rate in cs.K3_TIMED_RATES:
+        plan = PolyphasePlan.create(2_048_000, rate)
+        table = R.make_table(plan, "cuda")
+        x = cs.random_planes(torch, rng, (n,))
+        carry = cs.random_planes(torch, rng, (2 * plan.half,))
+        got, _ = R.resample(x, carry, table)
+        want, _ = R.resample_plain(x, carry, table)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        tol = 1e-5 * max(float(w.abs().max()) for w in want)
+        ok = all(bool(torch.allclose(g, w, rtol=1e-5, atol=tol))
+                 for g, w in zip(got, want))
+        cs.check(ok, f"resample_poly {rate}: err {err}, outside rtol 1e-5 "
+                 f"/ atol {tol}")
+        t = cs.kernel_times(
+            torch, {"": cs.resample_calls(torch, x, carry, table)[""]}, cpm)
+        rec[f"resample_poly_{rate}"] = {"max_abs_err": err, **t}
     print(json.dumps(rec), flush=True)
 
 
