@@ -34,25 +34,33 @@ Phases, in order; any failure exits non-zero and prints no result:
 3. The front end against the reference goldens in tests/golden/
    (e2e_symbols: 2 TFs, 2 sub-channels; e2e_real_symbols: 4 TFs, the
    17-sub-channel ensemble).
-4. Three paths at full width, TM I, batch_tf=24 (24 x 196,608 samples a
-   step in), two consecutive batches carrying the state, as f32 planes and
-   as s16 wire words, against the port run on the CPU on the same ETI:
+4. Four paths at full width, TM I, batch_tf=24 (24 x 196,608 samples a
+   step in), two consecutive batches carrying the state, against the port
+   run on the CPU on the same ETI:
    * "main": the 17-sub-channel / 855-CU ensemble and the 2-sub-channel
-     bench ensemble at 2.048 MS/s (K1);
+     bench ensemble at 2.048 MS/s (K1), f32 planes and s16 wire words;
    * "realistic17_cfr_8m192": the 17-sub-channel ensemble with CFR
      (clip 40.0, error clip 3.0, doc/example.ini:56-59) and output at
-     8.192 MS/s through the polyphase resampler (K2, K3), its statistics
-     (clip counts, PAPR, MER) and state (mer_index, res_carry) included.
-     At these settings the error clip never acts;
+     8.192 MS/s through the polyphase resampler (K2, K3), f32 and s16, its
+     statistics (clip counts, PAPR, MER) and state (mer_index, res_carry)
+     included.  At these settings the error clip never acts;
    * "realistic17_cfr30_3m072": the same ensemble with CFR at clip 30.0,
      error clip 0.1 (tests/test_quality.py:151-154), where the error clip
-     acts on every TF, and output at 3.072 MS/s (L/M = 3/2) (K2, K3).
+     acts on every TF, and output at 3.072 MS/s (L/M = 3/2) (K2, K3), f32
+     and s16;
+   * "realistic17_dpd_8m192": the chain that feeds DPD: the same ensemble
+     with TII in the NULL symbol (comb 5, pattern 31), CFR 40/3, the
+     windowed guard interval (overlap 90), the default FIR, 8.192 MS/s
+     (K2, K3) and the poly DPD (tests/test_filters.py:133-134's
+     coefficients, written as a format-1 file in a temporary directory),
+     f32 planes at the UHD scale (1/50000), within 1e-4*max|ref| of the
+     CPU after the DPD.
    Each path's kernel launch counts are set to 0 just before its card run
    and read just after; a kernel's launches are summed over its paths.
 5. Times on the card (CUDA events, warm-up, median of 25 runs): each path's
    step time (with its quartiles), the host's time to issue a step in the
    same runs, samples/s at the output rate and a torch.profiler breakdown
-   in both formats; each kernel (20 back-to-back calls a run, cycling
+   in each of its formats; each kernel (20 back-to-back calls a run, cycling
    through input sets larger than L2 together, and again on one input
    set; the card spins in torch.cuda._sleep while the host issues the
    calls, so the events see device time only, and the host's issue time
@@ -60,21 +68,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    timed without the spin and marked host_paced), its plain version, one
    PyTorch library call as a yardstick where one computes the same
    function, and the kernel's bound from this run's shapes; K3 at both
-   of the paths' rates, 8.192 and 3.072 MS/s.
+   of the paths' rates, 8.192 and 3.072 MS/s; and the eager stages the
+   DPD path adds (windowed guard interval, FIR, poly and LUT DPD), each
+   alone at that path's shapes, beside its bytes bound.
+6. Variant runs, each on the card against the CPU at 2 TFs a batch, two
+   batches carrying the state, the 17-sub-channel ensemble, each printing
+   what it checked: the LUT DPD (tests/test_filters.py:151-153's LUT,
+   scale 2**31), u8 and s8 file output, the CIC equalizer (32.768 MHz),
+   the frequency-domain resampler at 1.536 MS/s ("auto") and 4.096 MS/s
+   ("fft"), the plain polyphase form at 2.5 MS/s (K3 launched no time),
+   TII's old variant in TM II, the windowed guard interval in TM II-IV,
+   modulate_traced's stage dumps of the DPD chain, and a hot swap of FIR
+   taps and poly coefficients between two batches against a modulator
+   built with the new ones.  K1's launches in these runs are counted.
 
 TF32 is switched off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False): every tolerance below assumes fp32
 arithmetic.  The line before the last is one JSON object with the kernels'
-numbers, labelled with the card's name and power limit; the last is
+numbers (and the eager stages' times), labelled with the card's name and
+power limit; the last is
 {"ok": true, "device": {...}}.
 """
 import itertools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -106,6 +129,16 @@ K3_INSTANCE_RATES = (8_192_000, 3_072_000, 1_024_000, 1_792_000, 1_536_000,
                      512_000)
 # the rates phase 5 times K3 at: those of the resampled paths
 K3_TIMED_RATES = (8_192_000, 3_072_000)
+# the chain that feeds DPD: TII (the goldens' comb and pattern), CFR 40/3,
+# the guard_ov90 golden's window, the default FIR, 8.192 MS/s; the poly
+# DPD's file is added by dpd_files()
+DPD_8M192 = dict(CFR_8M192, tii_enable=True, tii_comb=5, tii_pattern=31,
+                 ofdm_window_overlap=90, filter_taps_file="default")
+POLY_AM = (1.0, 0.1, -0.05, 0.02, -0.01)    # tests/test_filters.py:133-134
+POLY_PM = (0.02, -0.01, 0.005, 0.0, 0.0)
+LUT_SCALE = 2.0 ** 31                       # tests/test_filters.py:151-153
+DPD_REL = 1e-4        # f32 tolerance after the poly DPD, of max|ref|
+VARIANT_TF = 2        # TFs a batch in phase 6
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and fp32 (non-tensor) peak
 HBM_BYTES_PER_S = 3.35e12
@@ -496,13 +529,14 @@ def phase_resampler(torch, rng):
     K3_TIMED_RATES, its input, carry, table and max abs error."""
     from dabmod_tpu_torch import tables
     from dabmod_tpu_torch.config import ModSettings
-    from dabmod_tpu_torch.models.modulator import resampler_plan
+    from dabmod_tpu_torch.models.modulator import resampler_route
     from dabmod_tpu_torch.ops import resampler_kernel as R
     n = BATCH_TF * tables.mode_params(1).tf_samples
     res = {}
     for rate, mode in RES_RATES:
-        plan = resampler_plan(ModSettings(output_rate=rate,
-                                          resampler_mode=mode))
+        route, plan = resampler_route(ModSettings(output_rate=rate,
+                                                  resampler_mode=mode), 2048)
+        check(route == "kernel", f"{rate} ({mode}) takes the {route} route")
         table = R.make_table(plan, "cuda")
         x = random_planes(torch, rng, (n,))
         carry = random_planes(torch, rng, (2 * plan.half,))
@@ -573,12 +607,38 @@ def phase_frontend(torch):
 
 
 def _settings(fmt, **extra):
+    """f32 planes ("f32"), f32 planes at the UHD scale ("uhd"), or a file
+    sink's integer wire words ("s16", "u8", "s8"); TM I unless `extra`
+    names a mode.  The batch is the number of ETI frames given to
+    modulate."""
     from dabmod_tpu_torch.config import ModSettings
-    # the batch is the number of ETI frames given to modulate
+    extra = {"dab_mode": 1, **extra}
     if fmt == "f32":
-        return ModSettings(dab_mode=1, device_interleave=False, **extra)
-    return ModSettings(dab_mode=1, output="file", file_output_format="s16",
+        return ModSettings(device_interleave=False, **extra)
+    if fmt == "uhd":
+        return ModSettings(output="uhd", device_interleave=False,
+                           **extra).normalise_for_output()
+    return ModSettings(output="file", file_output_format=fmt,
                        **extra).normalise_for_output()
+
+
+_TMP = []
+
+
+def dpd_files() -> dict:
+    """The poly DPD file (format 1) and the LUT file (format 2) of the runs
+    here, written once into a temporary directory that main removes."""
+    if not _TMP:
+        _TMP.append(tempfile.mkdtemp(prefix="chip_smoke_"))
+        lut = (np.linspace(1.0, 0.9, 32) + 1j * np.linspace(0, 0.05, 32)
+               ).astype(np.complex64)
+        with open(os.path.join(_TMP[0], "poly.coef"), "w") as f:
+            f.write("1\n5\n" + "".join(f"{v!r}\n"
+                                        for v in (*POLY_AM, *POLY_PM)))
+        with open(os.path.join(_TMP[0], "lut.coef"), "w") as f:
+            f.write(f"2\n{LUT_SCALE!r}\n" + "".join(
+                f"{float(v.real)!r}\n{float(v.imag)!r}\n" for v in lut))
+    return {k: os.path.join(_TMP[0], f"{k}.coef") for k in ("poly", "lut")}
 
 
 def _to_host(out):
@@ -595,15 +655,21 @@ def _kernels():
 
 
 def _paths():
+    """Each path: (ensembles, settings, kernels it must launch, formats)."""
     from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
+    r17 = (("realistic17", REALISTIC_MUX_SPECS),)
     return {
-        "main": ((("realistic17", REALISTIC_MUX_SPECS),
-                  ("bench2", BENCH_SPECS)), {}, ("ofdm_ifft",)),
-        "realistic17_cfr_8m192": ((("realistic17", REALISTIC_MUX_SPECS),),
-                                  CFR_8M192, ("ofdm_cfr", "resample_poly")),
-        "realistic17_cfr30_3m072": ((("realistic17", REALISTIC_MUX_SPECS),),
-                                    CFR30_3M072,
-                                    ("ofdm_cfr", "resample_poly")),
+        "main": ((*r17, ("bench2", BENCH_SPECS)), {}, ("ofdm_ifft",),
+                 ("f32", "s16")),
+        "realistic17_cfr_8m192": (r17, CFR_8M192,
+                                  ("ofdm_cfr", "resample_poly"),
+                                  ("f32", "s16")),
+        "realistic17_cfr30_3m072": (r17, CFR30_3M072,
+                                    ("ofdm_cfr", "resample_poly"),
+                                    ("f32", "s16")),
+        "realistic17_dpd_8m192": (
+            r17, dict(DPD_8M192, poly_coef_file=dpd_files()["poly"]),
+            ("ofdm_cfr", "resample_poly"), ("uhd",)),
     }
 
 
@@ -618,7 +684,7 @@ def phase_paths(torch):
 
     kernels = _kernels()
     launches, per_path = {}, {}
-    for path, (ensembles, extra, used) in _paths().items():
+    for path, (ensembles, extra, used, fmts) in _paths().items():
         cases = []
         for name, specs in ensembles:
             frames = BATCH_TF * 4                  # TM I: 4 CIFs a TF
@@ -626,7 +692,7 @@ def phase_paths(torch):
                                   seed=SEED)
             batches = [parse_eti_frames(raw[:frames]),
                        parse_eti_frames(raw[frames:])]
-            for fmt in ("f32", "s16"):
+            for fmt in fmts:
                 cases.append((name, specs, fmt, batches))
 
         def drive(device):
@@ -640,7 +706,8 @@ def phase_paths(torch):
                     if device == "cpu" and m.settings.enable_cfr:
                         # the samples of the plain CFR at a threshold
                         syms, _ = m.ofdm_symbols(b.fic, b.subchannels,
-                                                 state["ti_history"])
+                                                 state["ti_history"],
+                                                 state["tf_index"])
                         marg.append(ofdm_kernel.cfr_threshold_margin(
                             syms, m._ofdm_table, m.settings.cfr_clip,
                             m.settings.cfr_error_clip,
@@ -673,34 +740,36 @@ def phase_paths(torch):
         cpu, margins = drive("cpu")
         log(f"[4] the same on the CPU (plain versions) in "
             f"{time.perf_counter() - t0:.1f} s")
+        rel = DPD_REL if "poly_coef_file" in extra else 3e-5
         for name, _specs, fmt, _b in cases:
             (g_res, n_out), (c_res, _) = gpu[(name, fmt)], cpu[(name, fmt)]
             for k, ((g, gs), (c, cs)) in enumerate(zip(g_res, c_res)):
                 tag = f"{path}/{name}/{fmt} batch {k}"
                 compare_batch(tag, fmt, g, gs, c, cs, n_out,
-                              margins[(name, fmt)][k] if extra else None)
+                              margins[(name, fmt)][k] if extra else None,
+                              rel)
                 if extra.get("cfr_error_clip", np.inf) < 1.0:
                     check(int(cs["cfr_errclip"].min()) > 0,
                           f"{tag}: the error clip never acted in a TF")
     return launches, per_path
 
 
-def compare_batch(tag, fmt, g, gs, c, cs, n_out, margin):
-    """One batch of the card against the CPU: f32 within 3e-5*max|ref|
-    (tests/test_ofdm_kernel.py:88-89: fp32 transforms and reductions in
-    other orders), s16 within 1 LSB (a float difference at a truncation
-    edge) with equal num_clipped; with CFR the clip counts within the
-    threshold margin, PAPR within 1e-3 dB, MER within 0.1 dB (:96) and
-    mer_valid equal."""
+def compare_batch(tag, fmt, g, gs, c, cs, n_out, margin, rel=3e-5):
+    """One batch of the card against the CPU: f32 within rel*max|ref|
+    (3e-5, tests/test_ofdm_kernel.py:88-89: fp32 transforms and reductions
+    in other orders; DPD_REL after the poly DPD), s16 within 1 LSB (a
+    float difference at a truncation edge) with equal num_clipped; with
+    CFR the clip counts within the threshold margin, PAPR within 1e-3 dB,
+    MER within 0.1 dB (:96) and mer_valid equal."""
     check(set(gs) == set(cs), f"{tag}: stats keys {set(gs)} != {set(cs)}")
-    if fmt == "f32":
+    if fmt in ("f32", "uhd"):
         for gp in g:
             check(gp.shape == (BATCH_TF, n_out) and gp.dtype == np.float32,
                   f"{tag}: {gp.shape}")
             check(bool(np.isfinite(gp).all()), f"{tag}: not finite")
         scale = max(float(np.abs(x).max()) for x in c)
         err = max(float(np.abs(a - b).max()) for a, b in zip(g, c))
-        tol = 3e-5 * scale
+        tol = rel * scale
         log(f"    {tag}: max abs err {err:.3e} (tol {tol:.3e})")
         check(err <= tol, f"{tag}: err {err} > {tol}")
     else:
@@ -791,16 +860,17 @@ def profile_steps(torch, step, n=5) -> dict:
                 [key, us / n / 1e3, count // n] for key, (us, count) in top]}
 
 
-def time_path(torch, path, specs, extra):
+def time_path(torch, path, specs, extra, fmts):
     """Step time, host issue time, samples/s at the output rate and the
-    profile of one path on the 17-sub-channel ensemble, f32 and s16."""
+    profile of one path on the 17-sub-channel ensemble, in each of its
+    formats."""
     from dabmod_tpu_torch.eti import parse_eti_frames, synth_eti_batch
     from dabmod_tpu_torch.models import Modulator, make_default_layout
 
     b = parse_eti_frames(synth_eti_batch(BATCH_TF * 4, mode=1,
                                          subch_specs=specs, seed=SEED + 1))
     rec = {}
-    for fmt in ("f32", "s16"):
+    for fmt in fmts:
         m = Modulator(make_default_layout(1, specs), _settings(fmt, **extra),
                       device="cuda")
         fic = torch.as_tensor(b.fic, device="cuda")
@@ -1029,29 +1099,304 @@ def time_resample(torch, cpm, x, carry, table, err, launches, ptxas):
     return k
 
 
+def time_dpd_stages(torch, cpm) -> dict:
+    """Device ms of the eager stages realistic17_dpd_8m192 adds, alone, at
+    its shapes (24 TFs, TM I): the windowed guard interval (overlap 90,
+    with gains) and the FIR (the 45 default taps) at 2.048 MS/s, the poly
+    and the LUT DPD at 8.192 MS/s; device_runs of 3 calls, the card held
+    in a spin while the host issues them.  Each with the host's time to
+    issue it and its bound: each input read and each output written once
+    at the HBM rate (their operations are far below the fp32 peak)."""
+    from dabmod_tpu_torch import tables
+    from dabmod_tpu_torch.ops import filters, ofdm
+    p = tables.mode_params(1)
+    rng = np.random.default_rng(SEED + 6)
+    td = random_planes(torch, rng, (BATCH_TF, p.nb_symbols + 1, p.spacing))
+    gains = torch.rand(BATCH_TF, p.nb_symbols + 1, device="cuda")
+    iq = random_planes(torch, rng, (BATCH_TF, p.tf_samples))
+    up = tuple(x * 0.5 for x in random_planes(torch, rng,
+                                              (BATCH_TF, 4 * p.tf_samples)))
+    taps = torch.as_tensor(tables.DEFAULT_FIR_TAPS, device="cuda")
+    am, pm = (torch.tensor(c, dtype=torch.float32, device="cuda")
+              for c in (POLY_AM, POLY_PM))
+    lut = torch.rand(32, 2, device="cuda")
+    scale = torch.tensor(np.float32(LUT_SCALE), device="cuda")
+    plane = 4 * BATCH_TF * p.tf_samples           # bytes of one 2.048 plane
+    stages = {
+        "guard_interval_windowed": (
+            lambda: ofdm.guard_interval_windowed(td, p.null_size,
+                                                 p.sym_size, 90, gains),
+            2 * 4 * td[0].numel() + 2 * plane),
+        "fir_filter": (lambda: filters.fir_filter(iq, taps), 4 * plane),
+        "memless_poly": (lambda: filters.memless_poly(up, am, pm),
+                         4 * 4 * plane),
+        "memless_lut": (lambda: filters.memless_lut(up, lut, scale),
+                        4 * 4 * plane),
+    }
+    rec = {}
+    for name, (fn, nbytes) in stages.items():
+        dev, host, paced = device_runs(torch, fn, 3, cpm)
+        rec[name] = {"ms": statistics.median(dev),
+                     "host_issue_ms": statistics.median(host),
+                     "host_paced": paced,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bytes": nbytes}
+    log(f"[5] eager stages of realistic17_dpd_8m192 alone: {json.dumps(rec)}")
+    return rec
+
+
 def phase_times(torch, inputs, launches, ptxas):
-    """Phase 5; `launches` is phase 4's (summed over paths, per path)."""
+    """Phase 5; `launches` is phase 4's (summed over paths, per path).
+    Returns the eager stages' times and the kernels' records."""
     total, per_path = launches
-    for path, (ensembles, extra, _used) in _paths().items():
-        time_path(torch, path, ensembles[0][1], extra)
+    for path, (ensembles, extra, _used, fmts) in _paths().items():
+        time_path(torch, path, ensembles[0][1], extra, fmts)
     cpm = sleep_cycles_per_ms(torch)
     log(f"[5] torch.cuda._sleep: {cpm:.0f} cycles a ms")
+    stages = time_dpd_stages(torch, cpm)
     planes, table, clip = inputs["ofdm"]
     sets = ofdm_timing_sets(torch, planes)
     calls = ofdm_calls(table, clip)
-    # K3's launches at each rate: those of the path that runs at it
-    res_paths = {8_192_000: "realistic17_cfr_8m192",
-                 3_072_000: "realistic17_cfr30_3m072"}
-    return [time_ofdm_ifft(torch, cpm, sets, table, calls["ofdm_ifft"],
-                           inputs["ofdm_ifft"], total["ofdm_ifft"],
-                           ptxas["ofdm_ifft"]),
-            time_ofdm_cfr(torch, cpm, sets, table, calls["ofdm_cfr"], clip,
-                          *inputs["ofdm_cfr"], total["ofdm_cfr"],
-                          ptxas["ofdm_cfr"]),
-            *[time_resample(torch, cpm, *inputs["resample_poly"][rate],
-                            per_path[res_paths[rate]]["resample_poly"],
-                            ptxas["resample_poly"])
-              for rate in K3_TIMED_RATES]]
+    # K3's launches at each rate: those of the paths that run at it
+    res_paths = {8_192_000: ("realistic17_cfr_8m192",
+                             "realistic17_dpd_8m192"),
+                 3_072_000: ("realistic17_cfr30_3m072",)}
+    kernels = [
+        time_ofdm_ifft(torch, cpm, sets, table, calls["ofdm_ifft"],
+                       inputs["ofdm_ifft"], total["ofdm_ifft"],
+                       ptxas["ofdm_ifft"]),
+        time_ofdm_cfr(torch, cpm, sets, table, calls["ofdm_cfr"], clip,
+                      *inputs["ofdm_cfr"], total["ofdm_cfr"],
+                      ptxas["ofdm_cfr"]),
+        *[time_resample(torch, cpm, *inputs["resample_poly"][rate],
+                        sum(per_path[p]["resample_poly"]
+                            for p in res_paths[rate]),
+                        ptxas["resample_poly"])
+          for rate in K3_TIMED_RATES]]
+    return stages, kernels
+
+
+# ---------------------------------------------------------------------------
+# phase 6: variant runs
+# ---------------------------------------------------------------------------
+
+def _variants():
+    """(name, TM, settings, format) of the variant runs that compare
+    outputs; each launches K1 and neither K2 nor K3."""
+    tii_old = dict(tii_enable=True, tii_comb=5, tii_pattern=31,
+                   tii_old_variant=True)
+    return [
+        ("lut_dpd", 1, dict(poly_coef_file=dpd_files()["lut"]), "uhd"),
+        ("u8_file", 1, {}, "u8"),
+        ("s8_file", 1, {}, "s8"),
+        ("cic_32m768", 1, dict(cic_eq_clock_rate=32_768_000), "f32"),
+        ("fft_1m536_auto", 1, dict(output_rate=1_536_000), "f32"),
+        ("fft_4m096", 1, dict(output_rate=4_096_000, resampler_mode="fft"),
+         "f32"),
+        ("poly_plain_2m5", 1, dict(output_rate=2_500_000), "f32"),
+        ("tii_old_tm2", 2, tii_old, "f32"),
+        ("window90_tm2", 2, dict(ofdm_window_overlap=90), "f32"),
+        ("window63_tm3", 3, dict(ofdm_window_overlap=63), "f32"),
+        ("window90_tm4", 4, dict(ofdm_window_overlap=90), "f32"),
+    ]
+
+
+def _variant_batches(mode):
+    from dabmod_tpu_torch import tables
+    from dabmod_tpu_torch.eti import (REALISTIC_MUX_SPECS, parse_eti_frames,
+                                      synth_eti_batch)
+    n = VARIANT_TF * tables.mode_params(mode).cif_count
+    raw = synth_eti_batch(2 * n, mode=mode, subch_specs=REALISTIC_MUX_SPECS,
+                          seed=SEED + 5)
+    return [parse_eti_frames(raw[:n]), parse_eti_frames(raw[n:])]
+
+
+def drive_both(torch, mode, settings, step=None):
+    """Two batches through a modulator on the card and one on the CPU,
+    the state carried; `step(m, batch, state, device)` replaces
+    modulate_eti.
+    Returns ({"cuda": [...], "cpu": [...]} of (output on the host, stats),
+    the card's kernel launches)."""
+    from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
+    from dabmod_tpu_torch.models import Modulator, make_default_layout
+    step = step or (lambda m, b, st, _dev: m.modulate_eti(b, st))
+    kernels = _kernels()
+    outs, counts = {}, None
+    for dev in ("cuda", "cpu"):
+        m = Modulator(make_default_layout(mode, REALISTIC_MUX_SPECS),
+                      settings, device=dev)
+        if dev == "cuda":
+            for k in kernels.values():
+                k.launches = 0
+        state, res = m.init_state(), []
+        for b in _variant_batches(mode):
+            out, state, stats = step(m, b, state, dev)
+            res.append((_to_host(out), {k: v.cpu().numpy()
+                                        for k, v in stats.items()}))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = {k: f.launches for k, f in kernels.items()}
+        outs[dev] = res
+    return outs, counts
+
+
+def _max_err(g, c):
+    scale = max(float(np.abs(x).max()) for x in c)
+    return max(float(np.abs(a - b).max()) for a, b in zip(g, c)), scale
+
+
+def check_lut_variant(torch, name, settings, outs):
+    """The LUT DPD: outputs within 3e-5*max|ref| except where the card's
+    and the CPU's bins differ, which must be samples within 1e-6
+    (relative) of a bin edge (the bins from each device's signal before
+    the DPD)."""
+    import dataclasses
+    from dabmod_tpu_torch.ops import filters
+    pre, _ = drive_both(torch, 1, dataclasses.replace(settings,
+                                                      poly_coef_file=""))
+    scale_t = torch.tensor(np.float32(LUT_SCALE))
+    n_other = n_edge = 0
+    for k in range(2):
+        xg, xc = (tuple(torch.as_tensor(v) for v in pre[d][k][0])
+                  for d in ("cuda", "cpu"))
+        other = (filters.lut_index(xg, scale_t)
+                 != filters.lut_index(xc, scale_t)).numpy()
+        edge = filters.lut_edge_samples(xc, scale_t).numpy()
+        check(not (other & ~edge).any(), f"[6] {name}: a LUT bin differs "
+              f"away from a bin edge")
+        (g, _), (c, _) = outs["cuda"][k], outs["cpu"][k]
+        scale = max(float(np.abs(x).max()) for x in c)
+        err = max(float(np.abs(a - b)[~other].max()) for a, b in zip(g, c))
+        check(err <= 3e-5 * scale, f"[6] {name} batch {k}: err {err}")
+        n_other += int(other.sum())
+        n_edge += int(edge.sum())
+    log(f"[6] {name}: card vs CPU, bins equal except {n_other} sample(s), "
+        f"all within 1e-6 of a bin edge ({n_edge} such samples); outputs "
+        f"elsewhere within 3e-5*max|ref|")
+
+
+def check_variant(torch, name, mode, extra, fmt):
+    settings = _settings(fmt, dab_mode=mode, **extra)
+    outs, counts = drive_both(torch, mode, settings)
+    check(counts == {"ofdm_ifft": 2, "ofdm_cfr": 0, "resample_poly": 0},
+          f"[6] {name}: kernel launches {counts}")
+    if name == "lut_dpd":
+        check_lut_variant(torch, name, settings, outs)
+        return counts
+    for k, ((g, gs), (c, cs)) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        if fmt in ("u8", "s8"):
+            byte = np.uint8 if fmt == "u8" else np.int8
+            check(g.dtype == np.int32 and g.shape == c.shape,
+                  f"[6] {name}: {g.shape} {g.dtype}")
+            d = int(np.abs(g.view(byte).astype(np.int32)
+                           - c.view(byte).astype(np.int32)).max())
+            check(d <= 1 and int(gs["num_clipped"]) == int(cs["num_clipped"]),
+                  f"[6] {name} batch {k}: byte diff {d}, clips "
+                  f"{int(gs['num_clipped'])} / {int(cs['num_clipped'])}")
+            what = (f"{g.shape[1]} words a TF, max byte diff {d}, "
+                    f"num_clipped {int(gs['num_clipped'])} / "
+                    f"{int(cs['num_clipped'])}")
+        else:
+            err, scale = _max_err(g, c)
+            check(err <= 3e-5 * scale and all(np.isfinite(x).all()
+                                              for x in g),
+                  f"[6] {name} batch {k}: err {err} > {3e-5 * scale}")
+            what = (f"{g[0].shape[1]} samples a TF, max abs err {err:.3e} "
+                    f"(tol {3e-5 * scale:.3e})")
+        log(f"[6] {name} (TM {mode}) batch {k}: {what}")
+    log(f"[6] {name}: kernel launches on the card {counts}")
+    return counts
+
+
+def check_traced(torch):
+    """modulate_traced of the DPD chain on the card against the CPU: the
+    same stage files, the integer stages byte-equal, the float stages
+    within 3e-5*max|ref| (DPD_REL after the poly DPD)."""
+    settings = _settings("uhd", **DPD_8M192,
+                         poly_coef_file=dpd_files()["poly"])
+    root = os.path.join(_TMP[0], "traces")
+
+    def traced(m, b, st, dev):
+        return m.modulate_traced(b.fic, tuple(b.subchannels), st,
+                                 os.path.join(root, dev))
+    drive_both(torch, 1, settings, traced)
+    names = sorted(os.listdir(os.path.join(root, "cuda")))
+    check(names and names == sorted(os.listdir(os.path.join(root, "cpu"))),
+          f"[6] modulate_traced: stage files differ: {names}")
+    worst = {}
+    for name in names:
+        with open(os.path.join(root, "cuda", name), "rb") as f:
+            got = f.read()
+        with open(os.path.join(root, "cpu", name), "rb") as f:
+            ref = f.read()
+        check(len(got) == len(ref), f"[6] {name}: sizes differ")
+        stage = name[3:-4]
+        if stage in ("fec", "qpsk_map", "diff_mod"):
+            check(got == ref, f"[6] modulate_traced {name}: bytes differ")
+            worst[stage] = "byte-equal"
+            continue
+        g, r = np.frombuffer(got, np.float32), np.frombuffer(ref, np.float32)
+        rel = DPD_REL if stage == "dpd" else 3e-5
+        err = float(np.abs(g - r).max()) / float(np.abs(r).max())
+        check(err <= rel, f"[6] modulate_traced {name}: err {err} of "
+              f"max|ref| > {rel}")
+        worst[stage] = f"{err:.2e}"
+    log(f"[6] modulate_traced (DPD chain, {VARIANT_TF} TFs x 2 batches): "
+        f"{len(names)} stage files, card vs CPU (max abs err of max|ref|): "
+        f"{json.dumps(worst)}")
+
+
+def check_hot_swap(torch):
+    """New FIR taps and poly coefficients swapped in between two batches on
+    the card: equal to a modulator built with them."""
+    import dataclasses
+    from dabmod_tpu_torch import tables
+    from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
+    from dabmod_tpu_torch.models import Modulator, make_default_layout
+    taps2 = np.asarray(tables.DEFAULT_FIR_TAPS[::-1], np.float32)
+    am2, pm2 = (0.9, 0.01, 0.0, 0.0, 0.0), (0.05, 0.0, 0.0, 0.0, 0.0)
+    d = _TMP[0]
+    with open(os.path.join(d, "taps2.txt"), "w") as f:
+        f.write(f"{taps2.size}\n" + "".join(f"{float(t)!r}\n"
+                                            for t in taps2))
+    with open(os.path.join(d, "poly2.coef"), "w") as f:
+        f.write("1\n5\n" + "".join(f"{v!r}\n" for v in (*am2, *pm2)))
+    s1 = _settings("uhd", **DPD_8M192, poly_coef_file=dpd_files()["poly"])
+    s2 = dataclasses.replace(s1, filter_taps_file=os.path.join(d,
+                                                               "taps2.txt"),
+                             poly_coef_file=os.path.join(d, "poly2.coef"))
+    b1, b2 = _variant_batches(1)
+    layout = make_default_layout(1, REALISTIC_MUX_SPECS)
+    m = Modulator(layout, s1, device="cuda")
+    _, st, _ = m.modulate_eti(b1, m.init_state())
+    check(m.update_fir_taps(taps2) and m.update_dpd("poly", (am2, pm2)),
+          "[6] hot swap refused")
+    check(not m.update_fir_taps(taps2[:7]), "[6] a tap-count change was "
+          "taken as a hot swap")
+    got, _, _ = m.modulate_eti(b2, st)
+    fresh = Modulator(layout, s2, device="cuda")
+    _, st_f, _ = fresh.modulate_eti(b1, fresh.init_state())
+    want, _, _ = fresh.modulate_eti(b2, st_f)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "[6] hot swap differs from a fresh modulator")
+    log("[6] hot swap of FIR taps and poly coefficients between two "
+        "batches on the card: equal to a fresh modulator built with them; "
+        "a tap-count change refused")
+
+
+def phase_variants(torch):
+    """Phase 6; returns the kernel launches summed over the variant runs
+    that compare outputs."""
+    t0 = time.perf_counter()
+    total = {}
+    for name, mode, extra, fmt in _variants():
+        for k, n in check_variant(torch, name, mode, extra, fmt).items():
+            total[k] = total.get(k, 0) + n
+    check_traced(torch)
+    check_hot_swap(torch)
+    log(f"[6] variant runs passed in {time.perf_counter() - t0:.1f} s; "
+        f"kernel launches {total}")
+    return total
 
 
 def main():
@@ -1068,13 +1413,21 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    card, ptxas = phase_card_and_build(torch)
-    inputs = phase_kernels(torch)
-    phase_frontend(torch)
-    launches = phase_paths(torch)
-    kernels = phase_times(torch, inputs, launches, ptxas)
+    try:
+        card, ptxas = phase_card_and_build(torch)
+        inputs = phase_kernels(torch)
+        phase_frontend(torch)
+        launches = phase_paths(torch)
+        stages, kernels = phase_times(torch, inputs, launches, ptxas)
+        variant_launches = phase_variants(torch)
+    finally:
+        for d in _TMP:
+            shutil.rmtree(d, ignore_errors=True)
+    # K1's launches in phase 6, beside those of the full-width paths
+    kernels[0]["variant_launches"] = variant_launches["ofdm_ifft"]
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"card": card, "kernels": kernels}), flush=True)
+    print(json.dumps({"card": card, "kernels": kernels,
+                      "eager_stages": stages}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,9 @@
 """Modulator settings: the port's copy of the fields of
 dabmod_tpu.config.ModSettings (the reference's mod_settings_t,
-src/ConfigParser.h:44-95) that the main path reads, plus the switches of the
-stages the port does not have yet, so that a caller who turns one on gets
-NotImplementedError from the Modulator instead of a silently different
-signal.  INI parsing comes with the runtime and CLI."""
+src/ConfigParser.h:44-95) that the modulator reads, under the same names
+and defaults; fft_engine=kiss|dexter, which the port does not have yet,
+makes the Modulator raise NotImplementedError instead of computing a
+silently different signal.  INI parsing comes with the runtime and CLI."""
 from __future__ import annotations
 
 import dataclasses
@@ -38,7 +38,10 @@ class ModSettings:
     filter_taps_file: str = ""           # "" disables the FIR
     poly_coef_file: str = ""             # "" disables DPD
     tii_enable: bool = False
-    # convert to the wire format (s16) on the device
+    tii_comb: int = 0
+    tii_pattern: int = 0
+    tii_old_variant: bool = False
+    # convert to the wire format (s16, u8, s8) on the device
     device_format_conversion: bool = True
     # interleave re/im into [., 2] pairs on the device for f32 outputs;
     # False returns (re, im) planes for the host writer to interleave

@@ -1,6 +1,7 @@
-"""OFDM-side ops on tensors (port of dabmod_tpu/ops/ofdm.py, main path):
-QPSK mapping, frequency interleaving, pi/4-DQPSK, bin mapping, crest factor
-reduction, gain control and guard-interval insertion.
+"""OFDM-side ops on tensors (port of dabmod_tpu/ops/ofdm.py, the float
+chain): QPSK mapping, frequency interleaving, pi/4-DQPSK, bin mapping, crest
+factor reduction, gain control and guard-interval insertion, plain and
+windowed.
 
 Every constellation point entering the differential modulator is an
 eighth-turn phasor exp(i*pi/4*q), so the reference's complex product chain
@@ -8,6 +9,8 @@ eighth-turn phasor exp(i*pi/4*q), so the reference's complex product chain
 sum mod 8.  Complex samples are (re, im) float32 planes (see ops.cplx).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -214,4 +217,107 @@ def guard_interval_unwindowed(symbols, null_size: int, sym_size: int,
         data = torch.cat([x[..., 1:, spacing - sym_pre:], x[..., 1:, :]],
                          dim=-1)
         return torch.cat([null, data.reshape(*lead, -1)], dim=-1)
+    return tuple(one(x) for x in symbols)
+
+
+# ---------------------------------------------------------------------------
+# Guard interval insertion with raised-cosine windowing, window_overlap > 0
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=32)
+def guard_window(ov: int, device: torch.device):
+    """The window's four edges, float32 tensors on `device` (rise1 0 -> 0.5,
+    rise2 0.5 -> 1, fall1 1 -> 0.5, fall2 0.5 -> 0): the rising half-window
+    computed in float64 and rounded to float32
+    (ref: src/GuardIntervalInserter.cpp:107).  Made once for each device:
+    a host-to-device copy in every step would wait for the card."""
+    win = 0.5 * (1.0 - np.cos(np.pi * np.arange(2 * ov) / (2 * ov - 1)))
+    win = win.astype(np.float32)
+    return tuple(torch.as_tensor(w.copy(), device=device) for w in (
+        win[:ov], win[ov:2 * ov], win[2 * ov - 1:ov - 1:-1], win[ov - 1::-1]))
+
+
+def guard_interval_windowed(symbols, null_size: int, sym_size: int,
+                            ov: int, gains=None):
+    """Raised-cosine windowed guard-interval insertion
+    (ref: src/GuardIntervalInserter.cpp:96-299), as slices over the symbol
+    axis.  symbols: (re, im) planes [B, S, spacing] with S = nb_symbols + 1
+    (NULL first) -> planes [B, tf_samples].
+
+    Each data symbol's block is, in order: the head, its rising edge's
+    second half (rise2) over the first ov prefix samples plus the previous
+    symbol's first ov samples on the falling edge's second half (fall2);
+    the rest of the prefix; the body; and the tail, its own last ov samples
+    on fall1 plus the next symbol's rise1 (the last symbol keeps its
+    unwindowed tail).  The NULL block carries its own falling edge.
+    `gains` ([B, S], already including the constant gain) folds into each
+    window operand, so every overlap sample takes the gain of the symbol
+    it came from, as gain-before-GI does in the reference chain."""
+    B, S, sp = symbols[0].shape
+    if not 0 < ov <= sym_size - sp:
+        raise ValueError(f"window overlap {ov} outside 1..{sym_size - sp}, "
+                         f"the guard interval")
+    npre = null_size - sp
+    rise1, rise2, fall1, fall2 = guard_window(ov, symbols[0].device)
+    pre0 = 2 * sp - sym_size          # where a data symbol's prefix starts
+
+    # per-symbol gains [B, S, 1]: g(a, b) is symbols a:b's, g(a) symbol a's
+    g_all = None if gains is None else gains[..., None]
+
+    def g(a, b=None):
+        if g_all is None:
+            return None
+        return g_all[:, a] if b is None else g_all[:, a:b]
+
+    def edge(x, win, gs):
+        """x on a window edge: the edge times the gain, then the sample."""
+        return x * (win if gs is None else win * gs)
+
+    def gain(x, gs):
+        return x if gs is None else x * gs
+
+    def one(x):
+        data = x[:, 1:]                            # [B, S-1, sp]
+        head = (edge(data[:, :, pre0:pre0 + ov], rise2, g(1, S))
+                # the previous symbol's cyclic suffix (NULL for s = 1)
+                + edge(x[:, :-1, :ov], fall2, g(0, S - 1)))
+        mid_prefix = gain(data[:, :, pre0 + ov:sp], g(1, S))
+        body = gain(data[:, :, :sp - ov], g(1, S))
+        tails = torch.cat([
+            edge(data[:, :-1, sp - ov:], fall1, g(1, S - 1))
+            + edge(data[:, 1:, pre0 - ov:pre0], rise1, g(2, S)),
+            gain(data[:, -1:, sp - ov:], g(S - 1, S))], dim=1)
+        blocks = torch.cat([head, mid_prefix, body, tails], dim=2)
+
+        # NULL block: plain prefix + body, its own falling edge plus the
+        # first data symbol's rise1 on the last ov samples
+        null = x[:, 0]
+        null_tail = (edge(null[:, sp - ov:], fall1, g(0))
+                     + edge(data[:, 0, pre0 - ov:pre0], rise1, g(1)))
+        null_pre_body = gain(torch.cat([null[:, sp - npre:],
+                                        null[:, :sp - ov]], dim=1), g(0))
+        null_block = torch.cat([null_pre_body, null_tail], dim=1)
+        return torch.cat([null_block, blocks.reshape(B, -1)], dim=1)
+    return tuple(one(x) for x in symbols)
+
+
+def guard_interval(symbols, gi_tables):
+    """The gather form of the guard-interval inserter: (re, im) planes
+    [..., S, spacing] -> [..., tf_samples] through the static overlap-add
+    tables of tables.guard_interval_tables (kept to check the slice forms
+    above)."""
+    idx_a, w_a, idx_b, w_b = (np.asarray(a) for a in gi_tables)
+    dev = symbols[0].device
+    ia, ib = (torch.as_tensor(i.astype(np.int64), device=dev)
+              for i in (idx_a, idx_b))
+    wa, wb = (torch.as_tensor(v, device=dev) for v in (w_a, w_b))
+
+    def one(x):
+        flat = x.reshape(*x.shape[:-2], -1)
+        flat = torch.cat([flat, flat.new_zeros((*flat.shape[:-1], 1))], -1)
+        out = flat[..., ia] * wa
+        if np.any(w_b != 0):
+            out = out + flat[..., ib] * wb
+        return out
     return tuple(one(x) for x in symbols)

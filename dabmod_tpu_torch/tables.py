@@ -1,6 +1,6 @@
 """Static tables of the ETSI EN 300 401 transmit chain (host-side NumPy).
 
-The port's own copy of the parts of dabmod_tpu/tables.py that the main path
+The port's own copy of the parts of dabmod_tpu/tables.py that the modulator
 reads; tests/test_torch_tables.py holds every function here equal to the
 original.  Everything runs once per configuration; the modulator turns the
 results into tensors on its device.  Conventions, as in the reference
@@ -389,6 +389,91 @@ def phase_ref_eighths(mode: int) -> np.ndarray:
     return (2 * phase_ref_quarters(mode)) % 8
 
 
+# eighth-turn phasors exp(i*pi/4*q), exact values to keep +/-1 and
+# +/-sqrt(1/2) bit-clean
+_s = np.float32(np.sqrt(0.5))
+PHASE_LUT = np.array([1, _s + 1j * _s, 1j, -_s + 1j * _s,
+                      -1, -_s - 1j * _s, -1j, _s - 1j * _s], dtype=np.complex64)
+
+
+def phase_ref_complex(mode: int) -> np.ndarray:
+    return PHASE_LUT[phase_ref_eighths(mode)]
+
+
+# ---------------------------------------------------------------------------
+# TII (ref: src/TII.cpp:30-337).  Carrier mask A_{c,p} plus the "write to
+# k and k+1" doubling; returns a phase mask usable with the phase reference.
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def tii_patterns() -> np.ndarray:
+    """All 70 TII patterns: 8-bit vectors with exactly four ones, ordered by
+    ascending integer value of the MSB-first bit string (EN 300 401 Table
+    keyed identically in the reference)."""
+    vals = [v for v in range(256) if bin(v).count("1") == 4]
+    vals.sort()
+    out = np.zeros((len(vals), 8), dtype=np.int32)
+    for i, v in enumerate(vals):
+        for b in range(8):
+            out[i, b] = (v >> (7 - b)) & 1
+    return out
+
+
+def _tii_enable_carrier(acp: np.ndarray, carriers: int, k: int):
+    ix = carriers // 2 + k + (-1 if k >= 0 else 0)
+    if ix < 0 or ix + 1 >= carriers:
+        raise ValueError("TII carrier out of range")
+    acp[ix] = True
+
+
+@lru_cache(maxsize=None)
+def tii_acp(mode: int, comb: int, pattern: int) -> np.ndarray:
+    """A_{c,p} boolean carrier mask in the internal carrier ordering."""
+    if mode not in (1, 2):
+        raise ValueError(f"TII unsupported in mode {mode}")
+    if not (0 <= comb <= 23 and 0 <= pattern <= 69):
+        raise ValueError("invalid TII comb/pattern")
+    p = mode_params(mode)
+    pat = tii_patterns()[pattern]
+    acp = np.zeros(p.nb_carriers, dtype=bool)
+    if mode == 1:
+        for base in (-768, -384):
+            for b in range(8):
+                k = base + 2 * comb + 48 * b
+                if base <= k < base + 384 and pat[b]:
+                    _tii_enable_carrier(acp, p.nb_carriers, k)
+        for base in (1, 385):
+            for b in range(8):
+                k = base + 2 * comb + 48 * b
+                if base <= k < base + 384 and pat[b]:
+                    _tii_enable_carrier(acp, p.nb_carriers, k)
+    else:  # mode 2
+        for b in range(4):
+            k = -192 + 2 * comb + 48 * b
+            if -192 <= k <= 192 and pat[b]:
+                _tii_enable_carrier(acp, p.nb_carriers, k)
+        for b in range(4, 8):
+            k = -191 + 2 * comb + 48 * b
+            if -192 <= k <= 192 and pat[b]:
+                _tii_enable_carrier(acp, p.nb_carriers, k)
+    return acp
+
+
+def tii_symbol(mode: int, comb: int, pattern: int,
+               old_variant: bool = False) -> np.ndarray:
+    """The TII null-symbol carrier vector (complex64)."""
+    p = mode_params(mode)
+    ref = phase_ref_complex(mode)
+    acp = tii_acp(mode, comb, pattern)
+    out = np.zeros(p.nb_carriers, dtype=np.complex64)
+    for i in range(p.nb_carriers):
+        if acp[i]:
+            out[i] = ref[i]
+            out[i + 1] = ref[i + 1] if old_variant else ref[i]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # OFDM carrier-to-bin mapping (ref: src/OfdmGenerator.cpp:77-103, inverse
 # direction): fft_in[0]=0; positive freqs 1..C/2 <- carriers[0:C/2];
@@ -411,6 +496,129 @@ def bin_map(mode: int):
     src[n - half:] = np.arange((c + 1) // 2, c)
     valid[n - half:] = True
     return src, valid
+
+
+# ---------------------------------------------------------------------------
+# Guard interval + optional raised-cosine windowing
+# (ref: src/GuardIntervalInserter.cpp:96-318)
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def guard_interval_tables(mode: int, window_overlap: int = 0):
+    """Static overlap-add formulation of the guard-interval inserter, kept
+    as the plain check of ops.ofdm.guard_interval_windowed.
+
+    Input: flattened symbols [S, spacing] with S = nb_symbols + 1 (NULL
+    first).  Output: tf_samples samples.  Returns (idx_a, w_a, idx_b, w_b)
+    such that out = in_flat[idx_a]*w_a + in_flat[idx_b]*w_b, where idx
+    points into the flattened input with one extra zero element appended
+    at index S*spacing (used where only one term contributes).
+    """
+    p = mode_params(mode)
+    n, null_sz, sym_sz, spacing = p.tf_samples, p.null_size, p.sym_size, p.spacing
+    S = p.nb_symbols + 1
+    zero = S * spacing
+    idx_a = np.full(n, zero, dtype=np.int32)
+    w_a = np.zeros(n, dtype=np.float32)
+    idx_b = np.full(n, zero, dtype=np.int32)
+    w_b = np.zeros(n, dtype=np.float32)
+
+    def flat(sym, off):
+        return sym * spacing + off
+
+    if window_overlap == 0:
+        # NULL symbol: cyclic prefix of (null_size - spacing) then full symbol
+        pre = null_sz - spacing
+        idx_a[:pre] = flat(0, np.arange(spacing - pre, spacing))
+        idx_a[pre:null_sz] = flat(0, np.arange(spacing))
+        w_a[:null_sz] = 1.0
+        out = null_sz
+        for s in range(1, S):
+            pre = sym_sz - spacing
+            idx_a[out:out + pre] = flat(s, np.arange(spacing - pre, spacing))
+            idx_a[out + pre:out + sym_sz] = flat(s, np.arange(spacing))
+            w_a[out:out + sym_sz] = 1.0
+            out += sym_sz
+        assert out == n
+        return idx_a, w_a, idx_b, w_b
+
+    ov = window_overlap
+    # rising half-window w[0..2ov-1], ref formula at GuardIntervalInserter.cpp:107
+    win = 0.5 * (1.0 - np.cos(np.pi * np.arange(2 * ov) / (2 * ov - 1)))
+    win = win.astype(np.float32)
+
+    # NULL symbol (no rising edge, falling edge into first data symbol)
+    pre = null_sz - spacing
+    idx_a[:pre] = flat(0, np.arange(spacing - pre, spacing))
+    w_a[:pre] = 1.0
+    idx_a[pre:pre + spacing - ov] = flat(0, np.arange(spacing - ov))
+    w_a[pre:pre + spacing - ov] = 1.0
+    # sloping down 1 -> 0.5 over the last ov samples of the NULL symbol
+    r = np.arange(ov)
+    idx_a[pre + spacing - ov:pre + spacing] = flat(0, spacing - ov + r)
+    w_a[pre + spacing - ov:pre + spacing] = win[2 * ov - 1 - r]
+    # cyclic suffix past the nominal end: first ov samples of the symbol,
+    # weighted 0.5 -> 0; it lands on the next symbol's first ov output
+    # samples, overlapping that symbol's rising edge
+    suffix_idx = flat(0, r)
+    suffix_w = win[ov - 1 - r]
+    out = null_sz
+
+    for s in range(1, S):
+        pre = sym_sz - spacing
+        # rising edge spans output [out-ov, out+ov): the first half adds to
+        # the previous symbol's falling edge, the second half to its suffix
+        rise_src = flat(s, 2 * spacing - sym_sz - ov + r)
+        idx_b[out - ov:out] = rise_src
+        w_b[out - ov:out] = win[:ov]
+        # previous symbol's cyclic suffix on [out, out+ov)
+        idx_b[out:out + ov] = suffix_idx
+        w_b[out:out + ov] = suffix_w
+        # second half of the rise on [out, out+ov)
+        rise2_src = flat(s, 2 * spacing - sym_sz + r)
+        idx_a[out:out + ov] = rise2_src
+        w_a[out:out + ov] = win[ov:2 * ov]
+        # remaining cyclic prefix at full weight
+        idx_a[out + ov:out + pre] = flat(s, 2 * spacing - sym_sz + np.arange(ov, pre))
+        w_a[out + ov:out + pre] = 1.0
+        last = (s == S - 1)
+        if last:
+            idx_a[out + pre:out + sym_sz] = flat(s, np.arange(spacing))
+            w_a[out + pre:out + sym_sz] = 1.0
+        else:
+            body = spacing - ov
+            idx_a[out + pre:out + pre + body] = flat(s, np.arange(body))
+            w_a[out + pre:out + pre + body] = 1.0
+            # falling edge 1 -> 0.5
+            idx_a[out + pre + body:out + sym_sz] = flat(s, body + r)
+            w_a[out + pre + body:out + sym_sz] = win[2 * ov - 1 - r]
+            # suffix for the next symbol's overlap region
+            suffix_idx = flat(s, r)
+            suffix_w = win[ov - 1 - r]
+        out += sym_sz
+    assert out == n
+    return idx_a, w_a, idx_b, w_b
+
+
+# ---------------------------------------------------------------------------
+# Default FIR spectrum-mask filter taps (ref: src/FIRFilter.cpp:50-71):
+# generated low-pass, gain 1, fs 2.048 MHz, cutoff 810 kHz, transition 250 kHz
+# ---------------------------------------------------------------------------
+
+DEFAULT_FIR_TAPS = np.array([
+    -0.00110450468492, 0.00120703084394, -0.000840645749122, -0.000187368263141,
+    0.00184351124335, -0.00355578539893, 0.00419321097434, -0.00254214904271,
+    -0.00183473504148, 0.00781436730176, -0.0125957569107, 0.0126200336963,
+    -0.00537294941023, -0.00866683479398, 0.0249746385962, -0.0356550291181,
+    0.0319730602205, -0.00795613788068, -0.0363943465054, 0.0938014090061,
+    -0.151176810265, 0.193567320704, 0.791776955128, 0.193567320704,
+    -0.151176810265, 0.0938014090061, -0.0363943465054, -0.00795613788068,
+    0.0319730602205, -0.0356550291181, 0.0249746385962, -0.00866683479398,
+    -0.00537294941023, 0.0126200336963, -0.0125957569107, 0.00781436730176,
+    -0.00183473504148, -0.00254214904271, 0.00419321097434, -0.00355578539893,
+    0.00184351124335, -0.000187368263141, -0.000840645749122, 0.00120703084394,
+    -0.00110450468492], dtype=np.float32)
 
 
 # Output normalisation constants (ref: src/DabMod.cpp:68-83)

@@ -17,8 +17,14 @@ samples that lie within 1e-5 (relative) of a threshold
 (ofdm_kernel.cfr_threshold_margin), where fp32 sums in other orders may
 fall either side; the power lanes rtol 1e-4.  The resampler within rtol
 1e-5, atol 1e-5*max|ref| (fp32 sums of the band, 33 to 127 taps, in other
-orders).  TF32 is off.
+orders).  The DPD chain's stages within 1e-5*max|ref| on their own and
+1e-4*max|ref| through the modulator after the poly DPD; a LUT sample may
+take the neighbouring entry only within 1e-6 (relative) of a bin edge; the
+u8/s8 wire byte-equal.  TF32 is off, except in the tests that run with
+every global flag at torch's default (`torch_defaults`).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +33,7 @@ from dabmod_tpu_torch import tables
 from dabmod_tpu_torch.config import ModSettings
 from dabmod_tpu_torch.eti import parse_eti_frames, synth_eti_batch
 from dabmod_tpu_torch.models import Modulator, make_default_layout
-from dabmod_tpu_torch.ops import ofdm_kernel, resampler_kernel
+from dabmod_tpu_torch.ops import filters, ofdm, ofdm_kernel, resampler_kernel
 from dabmod_tpu_torch.ops.filters import PolyphasePlan
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -324,3 +330,301 @@ def test_default_device_is_the_card(card):
     m = Modulator(make_default_layout(1))
     assert m.device.type == "cuda"
     assert m.init_state()["tf_index"].device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# the DPD chain's stages (plain PyTorch on the card) against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def torch_defaults():
+    """Every global TF32 flag at torch's default (matmul off, cuDNN on,
+    float32 matmul precision "highest") for the test, restored after: a
+    stage written as a cuDNN convolution would lose precision here."""
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    yield
+    torch.set_float32_matmul_precision(saved[0])
+    torch.backends.cuda.matmul.allow_tf32 = saved[1]
+    torch.backends.cudnn.allow_tf32 = saved[2]
+
+
+def _close(got, ref, rel):
+    scale = max(float(r.abs().max()) for r in ref)
+    for g, r in zip(got, ref):
+        assert g.device.type == "cuda" and g.shape == r.shape
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   atol=rel * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_windowed_guard_interval_on_card(card, mode):
+    p = tables.mode_params(mode)
+    x = _planes("cpu", 40 + mode, (2, p.nb_symbols + 1, p.spacing))
+    g = torch.rand(2, p.nb_symbols + 1) * 90 + 10
+    ov = min(90, p.sym_size - p.spacing)
+    ref = ofdm.guard_interval_windowed(x, p.null_size, p.sym_size, ov, g)
+    got = ofdm.guard_interval_windowed(tuple(v.to(card) for v in x),
+                                       p.null_size, p.sym_size, ov,
+                                       g.to(card))
+    _close(got, ref, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048 * 4, 3000])
+def test_fir_on_card_with_default_flags(card, torch_defaults, n):
+    """The banded (n a multiple of 128) and generic FIR forms on the card
+    with torch's default flags: fp32 matmuls, so within 1e-5 of the CPU
+    (TF32 would give about 1e-3)."""
+    x = _planes("cpu", n, (3, n))
+    for taps in (tables.DEFAULT_FIR_TAPS,
+                 np.random.default_rng(1).normal(size=45).astype(
+                     np.float32)):
+        t = torch.as_tensor(taps)
+        ref = filters.fir_filter(x, t)
+        got = filters.fir_filter(tuple(v.to(card) for v in x), t.to(card))
+        _close(got, ref, 1e-5)
+
+
+@pytest.mark.cuda
+def test_polyphase_plain_form_on_card_with_default_flags(card,
+                                                         torch_defaults):
+    """2.5 MS/s, the plan K3 does not take, through the plain form's
+    matmul on the card."""
+    plan = PolyphasePlan.create(2_048_000, 2_500_000,
+                                block=filters.PLAIN_BLOCK)
+    x = _planes("cpu", 50, (512 * 40,))
+    c = _planes("cpu", 51, (2 * plan.half,))
+    ref, ref_c = filters.resample_poly(x, plan, c)
+    got, got_c = filters.resample_poly(tuple(v.to(card) for v in x), plan,
+                                       tuple(v.to(card) for v in c))
+    _close(got, ref, 1e-5)
+    for g, r in zip(got_c, ref_c):
+        assert torch.equal(g.cpu(), r)
+
+
+LUT = (np.linspace(1.0, 0.9, 32) + 1j * np.linspace(0, 0.05, 32)
+       ).astype(np.complex64)          # tests/test_filters.py:151-153
+LUT_PAIRS = np.stack([LUT.real, LUT.imag], -1).astype(np.float32)
+POLY_AM = (1.0, 0.1, -0.05, 0.02, -0.01)   # tests/test_filters.py:133-134
+POLY_PM = (0.02, -0.01, 0.005, 0.0, 0.0)
+
+
+@pytest.mark.cuda
+def test_memless_poly_on_card(card):
+    x = tuple(v * 0.5 for v in _planes("cpu", 52, (4, 5000)))
+    am, pm = (torch.tensor(c, dtype=torch.float32) for c in (POLY_AM,
+                                                             POLY_PM))
+    ref = filters.memless_poly(x, am, pm)
+    got = filters.memless_poly(tuple(v.to(card) for v in x), am.to(card),
+                               pm.to(card))
+    _close(got, ref, 1e-5)
+
+
+@pytest.mark.cuda
+def test_memless_lut_on_card(card):
+    """The same bins as the CPU except within 1e-6 of a bin edge."""
+    x = _planes("cpu", 53, (4, 5000))
+    scale = torch.tensor(np.float32(2.0 ** 31))
+    lut = torch.as_tensor(LUT_PAIRS)
+    ref = filters.memless_lut(x, lut, scale)
+    xc = tuple(v.to(card) for v in x)
+    got = filters.memless_lut(xc, lut.to(card), scale.to(card))
+    other = (filters.lut_index(xc, scale.to(card)).cpu()
+             != filters.lut_index(x, scale))
+    edge = filters.lut_edge_samples(x, scale)
+    assert not (other & ~edge).any()
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu()[~other].numpy(),
+                                   r[~other].numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["u8", "s8", "s16"])
+def test_format_convert_on_card(card, fmt):
+    rng = np.random.default_rng(54)
+    x = torch.as_tensor(rng.uniform(-300, 300, (2, 4096, 2)).astype(
+        np.float32))
+    x.view(-1)[:8] = torch.tensor([127.5, -128.5, 255.9, -0.5, 0.5, -1.5,
+                                   32767.5, -32768.5])
+    ref, n_ref = filters.format_convert(x, fmt)
+    got, n = filters.format_convert(x.to(card), fmt)
+    assert got.cpu().numpy().tobytes() == ref.numpy().tobytes()
+    assert int(n) == int(n_ref) > 0
+    if fmt != "s16":
+        assert torch.equal(filters.pack_bytes(got).cpu(),
+                           filters.pack_bytes(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [4_096_000, 1_024_000, 3_072_000,
+                                  1_536_000])
+def test_freq_resampler_on_card(card, rate):
+    """cuFFT against the CPU's transforms: within 2e-5 of max|ref|."""
+    plan = filters.ResamplerPlan.create(2_048_000, rate, 2048)
+    hi, ho = plan.fft_in // 2, plan.fft_out // 2
+    rng = np.random.default_rng(rate // 1000)
+    x, it, ot = (torch.as_tensor(rng.standard_normal((n, 2)).astype(
+        np.float32)) for n in (hi * 8, hi, ho))
+    ref = filters.resample(x, plan, it, ot)
+    got = filters.resample(x.to(card), plan, it.to(card), ot.to(card))
+    _close(got, ref, 2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the DPD chain through the modulator on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _poly_file(directory, am=POLY_AM, pm=POLY_PM, name="poly.coef"):
+    path = os.path.join(str(directory), name)
+    with open(path, "w") as f:
+        f.write("1\n5\n" + "".join(f"{v!r}\n" for v in (*am, *pm)))
+    return path
+
+
+def _dpd_chain(tmp_path):
+    """chip_smoke.py's realistic17_dpd_8m192 settings: TII (comb 5,
+    pattern 31), CFR 40/3, overlap 90, the default FIR, 8.192 MS/s, the
+    poly DPD, f32 planes at the UHD scale."""
+    return ModSettings(
+        dab_mode=1, output="uhd", device_interleave=False, tii_enable=True,
+        tii_comb=5, tii_pattern=31, enable_cfr=True, cfr_clip=40.0,
+        cfr_error_clip=3.0, ofdm_window_overlap=90,
+        filter_taps_file="default", output_rate=8_192_000,
+        poly_coef_file=_poly_file(tmp_path)).normalise_for_output()
+
+
+def _run_both(card, settings, n_batches=2, seed=6, traced=None):
+    """The modulator on the card and on the CPU, two batches of 2 TFs with
+    the state carried; returns ({dev: [(out, stats)]}, launches on the
+    card per kernel)."""
+    kernels = {"ofdm_ifft": ofdm_kernel.ofdm_backend,
+               "ofdm_cfr": ofdm_kernel.ofdm_cfr_backend,
+               "resample_poly": resampler_kernel.resample}
+    raw = synth_eti_batch(8 * n_batches, mode=1, subch_specs=BENCH_SPECS,
+                          seed=seed)
+    outs, launched = {}, {}
+    for dev in (card, "cpu"):
+        m = Modulator(make_default_layout(1, BENCH_SPECS), settings,
+                      device=dev)
+        state, res = m.init_state(), []
+        before = {k: f.launches for k, f in kernels.items()}
+        for i in range(n_batches):
+            b = parse_eti_frames(raw[8 * i:8 * (i + 1)])
+            if traced is None:
+                out, state, stats = m.modulate_eti(b, state)
+            else:
+                out, state, stats = m.modulate_traced(
+                    b.fic, tuple(b.subchannels), state,
+                    os.path.join(traced, str(dev)))
+            res.append((out, {k: v.cpu() for k, v in stats.items()}))
+        if dev == card:
+            torch.cuda.synchronize()
+            launched = {k: f.launches - before[k]
+                        for k, f in kernels.items()}
+        outs[str(dev)] = res
+    return outs[str(card)], outs["cpu"], launched
+
+
+@pytest.mark.cuda
+def test_dpd_chain_on_card(card, tmp_path):
+    """The new full-width path's settings at 2 TFs a batch: K2 and K3
+    launched once a batch, K1 never; the output within 1e-4*max|ref| of
+    the CPU's, CFR's PAPR within 1e-3 dB."""
+    gpu, cpu, launched = _run_both(card, _dpd_chain(tmp_path))
+    assert launched == {"ofdm_ifft": 0, "ofdm_cfr": 2, "resample_poly": 2}
+    for (g, gs), (c, cs) in zip(gpu, cpu):
+        assert g[0].shape == (2, 4 * tables.mode_params(1).tf_samples)
+        _close(g, c, 1e-4)
+        for k in ("papr_before_cfr", "papr_after_cfr"):
+            np.testing.assert_allclose(gs[k], cs[k], atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,mode,k3", [(2_500_000, "auto", 0),
+                                          (1_536_000, "auto", 0),
+                                          (4_096_000, "fft", 0),
+                                          (4_096_000, "auto", 2)])
+def test_resampler_route_on_card(card, rate, mode, k3):
+    """The route is fixed by the plan: the plain polyphase form and the
+    frequency-domain resampler never launch K3, K3's plans always do."""
+    s = ModSettings(dab_mode=1, device_interleave=False, output_rate=rate,
+                    resampler_mode=mode)
+    gpu, cpu, launched = _run_both(card, s)
+    assert launched == {"ofdm_ifft": 2, "ofdm_cfr": 0, "resample_poly": k3}
+    for (g, _), (c, _) in zip(gpu, cpu):
+        _close(g, c, 3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(output="file", file_output_format="u8"),
+    dict(output="zmq", zmq_output_format="s8", digital_gain=3.0),
+    dict(cic_eq_clock_rate=32_768_000),
+    dict(tii_enable=True, tii_comb=5, tii_pattern=31)])
+def test_modulator_variants_on_card(card, kw):
+    s = ModSettings(dab_mode=1, device_interleave=False,
+                    **kw).normalise_for_output()
+    gpu, cpu, _ = _run_both(card, s)
+    for (g, gs), (c, cs) in zip(gpu, cpu):
+        if isinstance(c, tuple):
+            _close(g, c, 3e-5)
+            continue
+        byte = torch.uint8 if "file" in kw.values() else torch.int8
+        d = (g.cpu().view(byte).int() - c.view(byte).int()).abs().max()
+        assert int(d) <= 1
+        assert int(gs["num_clipped"]) == int(cs["num_clipped"])
+
+
+@pytest.mark.cuda
+def test_modulate_traced_on_card(card, tmp_path):
+    """The card's stage dumps against the CPU's: the integer stages
+    byte-equal, the float stages within 3e-5*max|ref| (1e-4 after the
+    poly DPD)."""
+    _run_both(card, _dpd_chain(tmp_path), traced=str(tmp_path))
+    names = sorted(os.listdir(tmp_path / "cuda"))
+    assert names == sorted(os.listdir(tmp_path / "cpu")) and names
+    for name in names:
+        got = (tmp_path / "cuda" / name).read_bytes()
+        ref = (tmp_path / "cpu" / name).read_bytes()
+        if name[3:-4] in ("fec", "qpsk_map", "diff_mod"):
+            assert got == ref, name
+            continue
+        g, r = np.frombuffer(got, np.float32), np.frombuffer(ref, np.float32)
+        rel = 1e-4 if name.endswith("dpd.dat") else 3e-5
+        np.testing.assert_allclose(g, r, atol=rel * np.abs(r).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+def test_hot_swap_on_card(card, tmp_path):
+    """New FIR taps and poly coefficients between two batches on the card
+    give what a modulator built with them gives."""
+    taps2 = np.asarray(tables.DEFAULT_FIR_TAPS[::-1], np.float32)
+    am2, pm2 = (0.9, 0.01, 0.0, 0.0, 0.0), (0.05, 0.0, 0.0, 0.0, 0.0)
+    s = _dpd_chain(tmp_path)
+    raw = synth_eti_batch(16, mode=1, subch_specs=BENCH_SPECS, seed=8)
+    b1, b2 = parse_eti_frames(raw[:8]), parse_eti_frames(raw[8:])
+    m = Modulator(make_default_layout(1, BENCH_SPECS), s, device=card)
+    _, st, _ = m.modulate_eti(b1, m.init_state())
+    assert m.update_fir_taps(taps2)
+    assert m.update_dpd("poly", (np.asarray(am2), np.asarray(pm2)))
+    got, _, _ = m.modulate_eti(b2, st)
+    taps_file = os.path.join(str(tmp_path), "taps2.txt")
+    with open(taps_file, "w") as f:
+        f.write(f"{taps2.size}\n" + "\n".join(repr(float(t))
+                                                for t in taps2))
+    fresh_s = ModSettings(**{**vars(s), "filter_taps_file": taps_file,
+                             "poly_coef_file": _poly_file(
+                                 tmp_path, am2, pm2, "p2.coef")})
+    fresh = Modulator(make_default_layout(1, BENCH_SPECS), fresh_s,
+                      device=card)
+    _, st_f, _ = fresh.modulate_eti(b1, fresh.init_state())
+    want, _, _ = fresh.modulate_eti(b2, st_f)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

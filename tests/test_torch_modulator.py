@@ -7,6 +7,7 @@ within 3e-5*max|ref| (tests/test_ofdm_kernel.py:88-89: fp32 transforms and
 gain reductions summed in different orders); s16 words within 1 LSB (a
 float difference at a truncation edge) with equal clip counts.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -23,9 +24,10 @@ from dabmod_tpu_torch import tables
 from dabmod_tpu_torch.config import ModSettings
 from dabmod_tpu_torch.eti import (REALISTIC_MUX_SPECS, parse_eti_frames,
                                   synth_eti_batch)
-from dabmod_tpu_torch.models import (Modulator, make_default_layout,
+from dabmod_tpu_torch.models import (Modulator, clear_modulator_cache,
+                                     get_modulator, make_default_layout,
                                      state_from_numpy)
-from dabmod_tpu_torch.ops import cplx
+from dabmod_tpu_torch.ops import cplx, filters
 from golden import load
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -65,6 +67,16 @@ def _np(out):
     if isinstance(out, tuple):
         return tuple(np.asarray(x) for x in out)
     return np.asarray(out)
+
+
+def write_poly_coefs(directory, am=(1.0, 0.1, -0.05, 0.02, -0.01),
+                     pm=(0.02, -0.01, 0.005, 0.0, 0.0), name="poly.coef"):
+    """A format-1 DPD file (src/MemlessPoly.cpp:110-232), by default with
+    the coefficients of tests/test_filters.py:133-134."""
+    path = os.path.join(str(directory), name)
+    with open(path, "w") as f:
+        f.write("1\n5\n" + "".join(f"{v!r}\n" for v in (*am, *pm)))
+    return path
 
 
 def _assert_same_output(got, ref, fmt, got_stats=None, ref_stats=None):
@@ -362,21 +374,64 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("kw,item", [
     ({"fft_engine": "kiss"}, "A9"),
     ({"fft_engine": "dexter"}, "A9"),
-    ({"output_rate": 1_024_000}, "A7"),
-    ({"tii_enable": True}, "A8"),
-    ({"output_rate": 4_096_000, "resampler_mode": "fft"}, "A7"),
-    ({"output_rate": 2_500_000}, "A7"),
-    ({"cic_eq_clock_rate": 32_768_000}, "A8"),
-    ({"filter_taps_file": "default"}, "A8"),
-    ({"poly_coef_file": "poly.coef"}, "A8"),
-    ({"ofdm_window_overlap": 10}, "A7"),
-    ({"output": "file", "file_output_format": "u8"}, "A7"),
-    ({"output": "zmq", "zmq_output_format": "s8"}, "A7"),
 ])
 def test_unsupported_settings_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Modulator(make_default_layout(1), ModSettings(dab_mode=1, **kw),
                   device="cpu")
+
+
+# the settings that raised NotImplementedError until ROADMAP A7 and A8
+# were ported: each now runs, and matches dabmod_tpu
+A7_A8_SETTINGS = [
+    {"output_rate": 1_024_000},                       # auto: fft below 2.048
+    {"tii_enable": True},
+    {"output_rate": 4_096_000, "resampler_mode": "fft"},
+    {"output_rate": 2_500_000},                       # poly, not K3's plan
+    {"cic_eq_clock_rate": 32_768_000},
+    {"filter_taps_file": "default"},
+    {"poly_coef_file": "poly.coef", "output": "uhd"},
+    {"ofdm_window_overlap": 10},
+    {"output": "file", "file_output_format": "u8"},
+    {"output": "zmq", "zmq_output_format": "s8"},
+]
+
+
+def _assert_same_narrow(got, ref, fmt, got_stats, ref_stats):
+    """u8/s8 int32 words [B, N/2]: each byte within 1 LSB (a float
+    difference at a truncation edge), equal clip counts."""
+    got, ref = _np(got), _np(ref)
+    assert got.dtype == np.int32 and got.shape == ref.shape
+    byte = {"u8": np.uint8, "s8": np.int8}[fmt]
+    d = np.abs(got.view(byte).astype(np.int32)
+               - ref.view(byte).astype(np.int32)).max()
+    assert d <= 1, d
+    assert int(got_stats["num_clipped"]) == int(ref_stats["num_clipped"])
+
+
+@pytest.mark.parametrize("kw", A7_A8_SETTINGS)
+def test_a7_a8_settings_match_reference(kw, tmp_path):
+    """bench.py's layout, 2 TFs, against dabmod_tpu's XLA path: f32 within
+    3e-5*max|ref| (1e-4*max|ref| after the poly DPD), the integer wire
+    within 1 LSB with equal clip counts, and the same state keys."""
+    kw = dict(kw)
+    if "poly_coef_file" in kw:
+        kw["poly_coef_file"] = write_poly_coefs(tmp_path)
+    b = parse_eti_frames(synth_eti_batch(8, mode=1, subch_specs=BENCH_SPECS,
+                                         seed=21))
+    mj = _jax(**kw, ofdm_backend="xla", fft_precision="highest")
+    ref, ref_state, ref_stats = mj.modulate(b.fic, tuple(b.subchannels),
+                                            mj.init_state())
+    m = _port(**kw, fft_precision="highest")
+    got, state, stats = m.modulate_eti(b, m.init_state())
+    assert set(state) == set(ref_state) and set(stats) == set(ref_stats)
+    if m._wire_fmt is not None:
+        _assert_same_narrow(got, ref, m._wire_fmt, stats, ref_stats)
+        return
+    tol = 1e-4 if "poly_coef_file" in kw else 3e-5
+    got, ref = np.stack(_np(got), -1), np.stack(_flat(ref, "planes"), -1)
+    assert got.shape == (2, m.tf_samples_out, 2) == ref.shape
+    np.testing.assert_allclose(got, ref, atol=tol * np.abs(ref).max())
 
 
 def test_inactive_cic_rate_is_accepted():
@@ -404,3 +459,392 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+# ---------------------------------------------------------------------------
+# TII, the windowed guard interval in TM II-IV, the narrow wire formats
+# ---------------------------------------------------------------------------
+
+TII = dict(tii_enable=True, tii_comb=5, tii_pattern=31)    # the goldens'
+
+
+def test_tii_in_the_null_symbol_of_even_tfs():
+    """The NULL symbol of TF k carries the TII symbol when the state's
+    tf_index + k is even, and is silent otherwise."""
+    b = parse_eti_frames(synth_eti_batch(12, mode=1, seed=3))
+    m = _port(((0, 24, 0x22),), **TII)
+    expect = tables.tii_symbol(1, 5, 31)
+    assert np.abs(expect).sum() > 0
+    for start in (0, 1, 6):
+        syms, _ = m.ofdm_symbols(b.fic, b.subchannels,
+                                 m.init_state()["ti_history"],
+                                 torch.tensor(start, dtype=torch.int32))
+        null = cplx.planes_to_complex(tuple(x[:, 0] for x in syms))
+        null = null[:, m._inv_perm]                  # carrier order
+        for k in range(3):
+            want = expect if (start + k) % 2 == 0 else 0 * expect
+            np.testing.assert_array_equal(null[k], want)
+
+
+def test_tii_one_batch_equals_two_half_batches():
+    """4 TFs in one batch == 1 + 3 TFs with the state carried: the second
+    batch starts at an odd TF index."""
+    raw = synth_eti_batch(16, mode=1, subch_specs=BENCH_SPECS, seed=11)
+    m = _port(**TII)
+    full, _, _ = m.modulate_eti(parse_eti_frames(raw), m.init_state())
+    st = m.init_state()
+    a, st, _ = m.modulate_eti(parse_eti_frames(raw[:4]), st)
+    b, st, _ = m.modulate_eti(parse_eti_frames(raw[4:]), st)
+    assert int(st["tf_index"]) == 4
+    for k in range(2):
+        np.testing.assert_array_equal(torch.cat([a[k], b[k]]).numpy(),
+                                      full[k].numpy())
+
+
+@pytest.mark.parametrize("mode", [3, 4])
+def test_tii_outside_modes_1_and_2_raises(mode):
+    with pytest.raises(ValueError, match="mode"):
+        _port(((0, 24, 0x22),), mode=mode, **TII)
+    with pytest.raises(ValueError, match="mode"):
+        _jax(((0, 24, 0x22),), mode=mode, **TII)
+
+
+@pytest.mark.parametrize("mode,kw", [
+    (2, dict(TII, tii_old_variant=True)),
+    (2, dict(ofdm_window_overlap=90)), (3, dict(ofdm_window_overlap=10)),
+    (3, dict(ofdm_window_overlap=63)), (4, dict(ofdm_window_overlap=90))])
+def test_other_modes_match_reference(mode, kw):
+    """TII's old variant in TM II, and the windowed guard interval in TM
+    II-IV up to the whole guard interval (63 samples in TM III)."""
+    p = tables.mode_params(mode)
+    specs = ((0, 24, 0x22),)
+    b = parse_eti_frames(synth_eti_batch(2 * p.cif_count, mode=mode,
+                                         subch_specs=specs, seed=mode))
+    mj = _jax(specs, mode=mode, ofdm_backend="xla", fft_precision="highest",
+              **kw)
+    ref, _, _ = mj.modulate(b.fic, tuple(b.subchannels), mj.init_state())
+    m = _port(specs, mode=mode, **kw)
+    got, _, _ = m.modulate_eti(b, m.init_state())
+    _assert_same_output(_np(got), _np(ref), "planes")
+
+
+def test_window_overlap_beyond_the_guard_interval_raises():
+    """TM III's guard interval is 63 samples: a longer overlap is refused
+    when the modulator is built (dabmod_tpu fails in its first modulate)."""
+    with pytest.raises(ValueError, match="guard interval"):
+        _port(((0, 24, 0x22),), mode=3, ofdm_window_overlap=90)
+
+
+@pytest.mark.parametrize("sink", ["file", "zmq"])
+@pytest.mark.parametrize("fmt", ["u8", "s8"])
+def test_narrow_wire_formats_clip_like_reference(fmt, sink):
+    """A digital gain of 3 drives the u8/s8 wire into saturation: the
+    bytes within 1 LSB and the clip counts equal to dabmod_tpu's."""
+    kw = {"output": sink, f"{sink}_output_format": fmt, "digital_gain": 3.0}
+    b = parse_eti_frames(synth_eti_batch(8, mode=1, subch_specs=BENCH_SPECS,
+                                         seed=12))
+    mj = _jax(ofdm_backend="xla", fft_precision="highest", **kw)
+    ref, _, ref_stats = mj.modulate(b.fic, tuple(b.subchannels),
+                                    mj.init_state())
+    m = _port(fft_precision="highest", **kw)
+    got, _, stats = m.modulate_eti(b, m.init_state())
+    assert got.shape == (2, tables.mode_params(1).tf_samples // 2)
+    _assert_same_narrow(got, ref, fmt, stats, ref_stats)
+    assert int(stats["num_clipped"]) > 0
+
+
+@pytest.mark.parametrize("sink", ["bladerf", "dexter"])
+def test_sc16_sinks_always_take_s16(sink):
+    m = _port(((0, 24, 0x22),), output=sink, file_output_format="u8")
+    assert m._wire_fmt == "s16"
+
+
+# ---------------------------------------------------------------------------
+# DPD, the whole chain that feeds it
+# ---------------------------------------------------------------------------
+
+LUT = (np.linspace(1.0, 0.9, 32) + 1j * np.linspace(0, 0.05, 32)
+       ).astype(np.complex64)          # tests/test_filters.py:151-153
+
+
+def write_lut(directory, lut=LUT, scale=2.0 ** 31, name="lut.coef"):
+    """A format-2 DPD file: the scale factor, then 32 (re, im) entries."""
+    path = os.path.join(str(directory), name)
+    with open(path, "w") as f:
+        f.write(f"2\n{scale!r}\n" + "".join(
+            f"{float(v.real)!r}\n{float(v.imag)!r}\n" for v in lut))
+    return path
+
+
+def test_dpd_lut_matches_reference(tmp_path):
+    """The LUT DPD at the UHD scale: each sample as dabmod_tpu computes it
+    (f32 tolerance), except samples within 1e-6 (relative) of a LUT bin
+    edge, which may take the neighbouring entry (one sample at this
+    seed)."""
+    b = parse_eti_frames(synth_eti_batch(8, mode=1, subch_specs=BENCH_SPECS,
+                                         seed=3))
+    kw = dict(output="uhd", poly_coef_file=write_lut(tmp_path))
+    mj = _jax(ofdm_backend="xla", fft_precision="highest", **kw)
+    ref, _, _ = mj.modulate(b.fic, tuple(b.subchannels), mj.init_state())
+    m = _port(fft_precision="highest", **kw)
+    got, _, _ = m.modulate_eti(b, m.init_state())
+    plain = _port(fft_precision="highest", output="uhd")
+    x, _, _ = plain.modulate_eti(b, plain.init_state())
+    scale = m._runtime_params["lut_scale"]
+    edge = filters.lut_edge_samples(x, scale).numpy()
+    bins = filters.lut_index(x, scale).numpy()
+    got, ref = np.stack(_np(got), -1), np.stack(_np(ref), -1)
+    far = np.abs(got - ref).max(axis=-1) > 3e-5 * np.abs(ref).max()
+    print(f"{int(edge.sum())} samples within 1e-6 of a LUT bin edge, "
+          f"{int(far.sum())} differ beyond the f32 tolerance")
+    assert not (far & ~edge).any()
+    assert len(np.unique(bins)) > 8
+
+
+def test_dpd_chain_matches_reference(tmp_path):
+    """The chain that feeds DPD (chip_smoke.py's realistic17_dpd_8m192 at
+    2 TFs a batch, bench.py's layout): TII, CFR 40/3, the windowed guard
+    interval (overlap 90), the default FIR, 8.192 MS/s through K3's plan
+    and the poly DPD at the UHD scale; two batches with the state carried,
+    the statistics and the state as dabmod_tpu's."""
+    kw = dict(CFR, **TII, ofdm_window_overlap=90, filter_taps_file="default",
+              output_rate=8_192_000, output="uhd",
+              poly_coef_file=write_poly_coefs(tmp_path))
+    raw = synth_eti_batch(16, mode=1, subch_specs=BENCH_SPECS, seed=CFR_SEED)
+    mj = _jax(ofdm_backend="xla", fft_precision="highest", **kw)
+    m = _port(fft_precision="highest", **kw)
+    sj, st = mj.init_state(), m.init_state()
+    for b in (parse_eti_frames(raw[:8]), parse_eti_frames(raw[8:])):
+        ref, sj, ref_stats = mj.modulate(b.fic, tuple(b.subchannels), sj)
+        got, st, stats = m.modulate_eti(b, st)
+        got, ref = np.stack(_np(got), -1), np.stack(_flat(ref, "planes"), -1)
+        assert got.shape == (2, 4 * tables.mode_params(1).tf_samples, 2)
+        np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max())
+        _assert_same_stats(stats, ref_stats)
+    for g, r in zip(st["res_carry"], sj["res_carry"]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r),
+                                   atol=3e-5 * float(np.abs(r).max()))
+
+
+# ---------------------------------------------------------------------------
+# hot swap and the modulator cache
+# ---------------------------------------------------------------------------
+
+def _write_taps(directory, taps, name="taps.txt"):
+    path = os.path.join(str(directory), name)
+    with open(path, "w") as f:
+        f.write(f"{len(taps)}\n" + "\n".join(f"{t!r}" for t in taps))
+    return path
+
+
+TAPS1 = [0.1, 0.5, 0.8, 0.5, 0.1]
+TAPS2 = [0.2, 0.4, 0.9, 0.4, 0.2]
+AM2, PM2 = (0.9, 0.01, 0.0, 0.0, 0.0), (0.05, 0.0, 0.0, 0.0, 0.0)
+
+
+def test_hot_swap_equals_a_fresh_modulator(tmp_path):
+    """New FIR taps and poly coefficients swapped in between two batches
+    give what a modulator built with them gives; a change of tap count or
+    DPD kind is refused (False) and changes nothing."""
+    raw = synth_eti_batch(16, mode=1, subch_specs=BENCH_SPECS, seed=14)
+    b1, b2 = parse_eti_frames(raw[:8]), parse_eti_frames(raw[8:])
+    kw = dict(output="uhd", filter_taps_file=_write_taps(tmp_path, TAPS1),
+              poly_coef_file=write_poly_coefs(tmp_path))
+    m = _port(**kw)
+    out1, st, _ = m.modulate_eti(b1, m.init_state())
+    assert m.update_fir_taps(np.asarray(TAPS2, np.float32))
+    assert m.update_dpd("poly", (np.asarray(AM2), np.asarray(PM2)))
+    assert not m.update_fir_taps(np.ones(7, np.float32))
+    assert not m.update_dpd("lut", (1.0, np.zeros((32, 2), np.float32)))
+    assert not m.update_dpd("poly", (np.ones(4), np.ones(5)))
+    out2, _, _ = m.modulate_eti(b2, st)
+
+    fresh = _port(output="uhd",
+                  filter_taps_file=_write_taps(tmp_path, TAPS2, "t2.txt"),
+                  poly_coef_file=write_poly_coefs(tmp_path, AM2, PM2,
+                                                  "p2.coef"))
+    _, st_f, _ = fresh.modulate_eti(b1, fresh.init_state())
+    want, _, _ = fresh.modulate_eti(b2, st_f)
+    for g, w in zip(out2, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert not np.array_equal(out1[0].numpy(), want[0].numpy())
+    assert not _port().update_fir_taps(np.asarray(TAPS1, np.float32))
+
+
+def test_lut_hot_swap_equals_a_fresh_modulator(tmp_path):
+    b = parse_eti_frames(synth_eti_batch(8, mode=1, subch_specs=BENCH_SPECS,
+                                         seed=15))
+    m = _port(output="uhd", poly_coef_file=write_lut(tmp_path))
+    lut2 = LUT[::-1].copy()
+    pairs2 = np.stack([lut2.real, lut2.imag], -1)
+    assert m.update_dpd("lut", (2.0 ** 30, pairs2))
+    assert not m.update_dpd("lut", (2.0 ** 30, pairs2[:16]))
+    assert not m.update_dpd("poly", (np.ones(5), np.ones(5)))
+    got, _, _ = m.modulate_eti(b, m.init_state())
+    fresh = _port(output="uhd", poly_coef_file=write_lut(
+        tmp_path, lut2, 2.0 ** 30, "lut2.coef"))
+    want, _, _ = fresh.modulate_eti(b, fresh.init_state())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def test_reference_runtime_params_copied_into_the_port(tmp_path):
+    """dabmod_tpu's hot-swapped arrays (np.asarray of its _runtime_params)
+    taken by update_fir_taps/update_dpd give its output."""
+    b = parse_eti_frames(synth_eti_batch(8, mode=1, subch_specs=BENCH_SPECS,
+                                         seed=16))
+    kw = dict(output="uhd", filter_taps_file=_write_taps(tmp_path, TAPS1),
+              poly_coef_file=write_poly_coefs(tmp_path))
+    mj = _jax(ofdm_backend="xla", fft_precision="highest", **kw)
+    assert mj.update_fir_taps(np.asarray(TAPS2, np.float32))
+    assert mj.update_dpd("poly", (np.asarray(AM2, np.float32),
+                                  np.asarray(PM2, np.float32)))
+    ref, _, _ = mj.modulate(b.fic, tuple(b.subchannels), mj.init_state())
+    m = _port(fft_precision="highest", **kw)
+    rp = {k: np.asarray(v) for k, v in mj._runtime_params.items()}
+    assert m.update_fir_taps(rp["fir_taps"])
+    assert m.update_dpd("poly", (rp["poly_am"], rp["poly_pm"]))
+    got, _, _ = m.modulate_eti(b, m.init_state())
+    got, ref = np.stack(_np(got), -1), np.stack(_np(ref), -1)
+    np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max())
+
+
+def test_modulator_cache_flip_returns_same_instance():
+    """As tests/test_recompile_cache.py:96-117: a flip back takes the
+    parked instance; values passed to each step do not split the cache;
+    another device is another entry."""
+    clear_modulator_cache()
+    layout = make_default_layout(1, BENCH_SPECS)
+    s = ModSettings(dab_mode=1)
+    m_off = get_modulator(layout, s, "cpu")
+    assert not m_off.cache_hit
+    s.tii_enable = True
+    m_on = get_modulator(layout, s, "cpu")
+    assert m_on is not m_off and not m_on.cache_hit
+    assert m_on._tii_vec is not None
+    s.tii_enable = False
+    assert get_modulator(layout, s, "cpu") is m_off
+    s.tii_enable = True
+    m_on2 = get_modulator(layout, s, "cpu")
+    assert m_on2 is m_on and m_on2.cache_hit and m_on2.settings is s
+    s.digital_gain = 0.5
+    s.gain_mode_variance = 2.0
+    assert get_modulator(layout, s, "cpu") is m_on
+    assert get_modulator(layout, s, "meta") is not m_on
+    clear_modulator_cache()
+
+
+def test_modulator_cache_keeps_eight():
+    clear_modulator_cache()
+    layout = make_default_layout(1, ((0, 24, 0x22),))
+    first = get_modulator(layout, ModSettings(dab_mode=1, tii_pattern=0),
+                          "cpu")
+    for k in range(1, 9):
+        get_modulator(layout, ModSettings(dab_mode=1, tii_pattern=k), "cpu")
+    again = get_modulator(layout, ModSettings(dab_mode=1, tii_pattern=0),
+                          "cpu")
+    assert again is not first and not again.cache_hit
+    clear_modulator_cache()
+
+
+def test_cached_modulator_refreshes_file_contents(tmp_path):
+    """As tests/test_recompile_cache.py:120-139: park a modulator, change
+    its taps file on disk, take it back: the new taps are in effect."""
+    clear_modulator_cache()
+    f = _write_taps(tmp_path, TAPS1)
+    layout = make_default_layout(1, BENCH_SPECS)
+    s = ModSettings(dab_mode=1, filter_taps_file=f, device_interleave=False)
+    m1 = get_modulator(layout, s, "cpu")
+    b = parse_eti_frames(synth_eti_batch(4, mode=1, subch_specs=BENCH_SPECS))
+    iq1 = m1.modulate_eti(b, m1.init_state())[0][0].numpy()
+    get_modulator(layout, dataclasses.replace(s, filter_taps_file=""), "cpu")
+    _write_taps(tmp_path, [0.3] * 5)
+    m2 = get_modulator(layout, s, "cpu")
+    assert m2 is m1 and m2.cache_hit
+    np.testing.assert_array_equal(m2._runtime_params["fir_taps"].numpy(),
+                                  np.float32([0.3] * 5))
+    iq2 = m2.modulate_eti(b, m2.init_state())[0][0].numpy()
+    assert not np.array_equal(iq1, iq2)
+    clear_modulator_cache()
+
+
+# ---------------------------------------------------------------------------
+# stage dumps and the frequency-domain resampler's state
+# ---------------------------------------------------------------------------
+
+INTEGER_STAGES = ("fec", "qpsk_map", "diff_mod")
+
+
+def test_modulate_traced_dumps_match_reference(tmp_path):
+    """The same stage files as dabmod_tpu's modulate_traced, in the same
+    byte layout: the integer stages byte-equal, the float stages within
+    the f32 tolerance, the s16 wire within 1 LSB.  A second traced batch
+    appends to each file."""
+    # a constant AM gain and PM rotation (tests/test_filters.py:259-262):
+    # the polynomial terms in |x|^2 diverge in f32 at the s16 scale
+    kw = dict(TII, filter_taps_file="default", output_rate=4_096_000,
+              poly_coef_file=write_poly_coefs(tmp_path, (1.02, 0, 0, 0, 0),
+                                              (0.05, 0, 0, 0, 0)))
+    b = parse_eti_frames(synth_eti_batch(8, mode=1, subch_specs=BENCH_SPECS,
+                                         seed=17))
+    mj = _jax(fmt="s16", ofdm_backend="xla", fft_precision="highest", **kw)
+    ref_out, _, _ = mj.modulate_traced(b.fic, tuple(b.subchannels),
+                                       mj.init_state(), str(tmp_path / "j"))
+    m = _port(fmt="s16", fft_precision="highest", **kw)
+    out, _, _ = m.modulate_traced(b.fic, tuple(b.subchannels),
+                                  m.init_state(), str(tmp_path / "t"))
+    assert m._tap is None
+    _assert_same_output(_np(out), np.asarray(ref_out).reshape(2, -1), "s16",
+                        {"num_clipped": 0}, {"num_clipped": 0})
+    names = sorted(os.listdir(tmp_path / "j"))
+    assert sorted(os.listdir(tmp_path / "t")) == names
+    assert [n[3:-4] for n in names] == [
+        "fec", "qpsk_map", "diff_mod", "carriers", "tii_null", "ofdm_ifft",
+        "gain", "guard_interval", "fir", "resampler", "dpd",
+        "format_convert"]
+    for name in names:
+        stage = name[3:-4]
+        got = (tmp_path / "t" / name).read_bytes()
+        ref = (tmp_path / "j" / name).read_bytes()
+        assert len(got) == len(ref), name
+        if stage in INTEGER_STAGES:
+            assert got == ref, name
+        elif stage == "format_convert":
+            d = np.abs(np.frombuffer(got, np.int16).astype(np.int32)
+                       - np.frombuffer(ref, np.int16).astype(np.int32))
+            assert d.max() <= 1, name
+        else:
+            g, r = np.frombuffer(got, np.float32), np.frombuffer(ref,
+                                                                 np.float32)
+            np.testing.assert_allclose(g, r, atol=3e-5 * np.abs(r).max(),
+                                       err_msg=name)
+    size = (tmp_path / "t" / names[0]).stat().st_size
+    m.modulate_traced(b.fic, tuple(b.subchannels), m.init_state(),
+                      str(tmp_path / "t"))
+    assert (tmp_path / "t" / names[0]).stat().st_size == 2 * size
+    m.modulate_eti(b, m.init_state())          # untraced: writes nothing
+    assert (tmp_path / "t" / names[0]).stat().st_size == 2 * size
+
+
+def test_freq_resampler_state_carried_over_from_reference():
+    """JAX modulates the first batch at 1.536 MS/s (frequency domain); its
+    res_in_tail and res_out_tail, through state_from_numpy, let the port
+    modulate the second batch as JAX does."""
+    raw = synth_eti_batch(16, mode=1, subch_specs=BENCH_SPECS, seed=18)
+    b1, b2 = parse_eti_frames(raw[:8]), parse_eti_frames(raw[8:])
+    kw = dict(output_rate=1_536_000)
+    mj = _jax(ofdm_backend="xla", fft_precision="highest", **kw)
+    _, sj, _ = mj.modulate(b1.fic, tuple(b1.subchannels), mj.init_state())
+    sj_np = {k: (tuple(np.asarray(x) for x in v) if isinstance(v, tuple)
+                 else np.asarray(v)) for k, v in sj.items()}
+    ref2, sj2, _ = mj.modulate(b2.fic, tuple(b2.subchannels), sj)
+    m = _port(fft_precision="highest", **kw)
+    state = state_from_numpy(sj_np, "cpu")
+    assert state["res_in_tail"].shape == (2048, 2)
+    assert state["res_out_tail"].shape == (1536, 2)
+    got2, st2, _ = m.modulate_eti(b2, state)
+    _assert_same_output(_np(got2), _np(ref2), "planes")
+    for key in ("res_in_tail", "res_out_tail"):
+        np.testing.assert_allclose(st2[key].numpy(), np.asarray(sj2[key]),
+                                   atol=3e-5 * np.abs(np.asarray(sj2[key]))
+                                   .max())

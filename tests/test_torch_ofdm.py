@@ -205,5 +205,87 @@ def test_format_convert_s16_matches_reference():
     assert int(n) == int(ref_n)
     same, n0 = filters.format_convert(torch.as_tensor(x), "complexf")
     assert same is not None and int(n0) == 0
-    with pytest.raises(NotImplementedError, match="A7"):
-        filters.format_convert(torch.as_tensor(x), "u8")
+    # the narrow formats convert too (tests/test_torch_filters.py holds
+    # them against dabmod_tpu); an unknown one is refused
+    assert filters.format_convert(torch.as_tensor(x), "u8")[0].dtype == \
+        torch.uint8
+    with pytest.raises(ValueError, match="format"):
+        filters.format_convert(torch.as_tensor(x), "s24")
+
+
+# ---------------------------------------------------------------------------
+# windowed guard interval
+# ---------------------------------------------------------------------------
+
+def _gi_inputs(mode, seed):
+    p = tables.mode_params(mode)
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, p.nb_symbols + 1, p.spacing, 2))
+    g = rng.uniform(10, 100, (2, p.nb_symbols + 1))
+    return p, x.astype(np.float32), g.astype(np.float32)
+
+
+@pytest.mark.parametrize("ov", [10, 90])
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_guard_interval_windowed_matches_reference(mode, ov):
+    """With and without gains against dabmod_tpu.ops.ofdm (atol 4e-6, as
+    tests/test_ofdm_golden.py:100), and against the gather form over
+    tables.guard_interval_tables.  An overlap longer than the guard
+    interval (90 in TM III, whose guard is 63 samples) is refused; JAX
+    fails on it too."""
+    p, x, g = _gi_inputs(mode, 10 * mode + ov)
+    planes_t = (torch.as_tensor(x[..., 0]), torch.as_tensor(x[..., 1]))
+    planes_j = (jnp.asarray(x[..., 0]), jnp.asarray(x[..., 1]))
+    if ov > p.sym_size - p.spacing:
+        with pytest.raises(ValueError, match="guard interval"):
+            ofdm.guard_interval_windowed(planes_t, p.null_size, p.sym_size,
+                                         ov)
+        with pytest.raises(Exception):
+            jofdm.guard_interval_windowed(planes_j, p.null_size, p.sym_size,
+                                          ov)
+        return
+    for gains in (None, g):
+        got = ofdm.guard_interval_windowed(
+            planes_t, p.null_size, p.sym_size, ov,
+            gains=None if gains is None else torch.as_tensor(gains))
+        ref = jofdm.guard_interval_windowed(
+            planes_j, p.null_size, p.sym_size, ov,
+            gains=None if gains is None else jnp.asarray(gains))
+        for a, b in zip(got, ref):
+            assert a.shape == (2, p.tf_samples) and a.dtype == torch.float32
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=4e-6)
+    gathered = ofdm.guard_interval(planes_t,
+                                   tables.guard_interval_tables(mode, ov))
+    plain = ofdm.guard_interval_windowed(planes_t, p.null_size, p.sym_size,
+                                         ov)
+    for a, b in zip(gathered, plain):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=4e-6)
+
+
+def test_guard_interval_windowed_golden():
+    """The reference's windowed inserter at overlap 90 (guard_ov90_*),
+    through the slice form and the gather form."""
+    cin = load("guard_ov90_in").reshape(77, 2048)
+    expect = load("guard_ov90_out")
+    p = tables.mode_params(1)
+    got = ofdm.guard_interval_windowed(planes(cin[None]), p.null_size,
+                                       p.sym_size, 90)
+    np.testing.assert_allclose(cplx.planes_to_complex(got)[0], expect,
+                               atol=4e-6)
+    gathered = ofdm.guard_interval(planes(cin[None]),
+                                   tables.guard_interval_tables(1, 90))
+    np.testing.assert_allclose(cplx.planes_to_complex(gathered)[0], expect,
+                               atol=4e-6)
+
+
+def test_guard_window_is_the_float64_window_rounded():
+    """The window is computed in float64 and rounded to float32
+    (dabmod_tpu/ops/ofdm.py:256-257), not torch.hann_window's float32."""
+    ov = 90
+    win = (0.5 * (1.0 - np.cos(np.pi * np.arange(2 * ov) / (2 * ov - 1)))
+           ).astype(np.float32)
+    rise1, rise2, fall1, fall2 = (w.numpy() for w in ofdm.guard_window(
+        ov, torch.device("cpu")))
+    np.testing.assert_array_equal(np.concatenate([rise1, rise2]), win)
+    np.testing.assert_array_equal(fall1, win[ov:][::-1])
+    np.testing.assert_array_equal(fall2, win[:ov][::-1])

@@ -98,3 +98,72 @@ def test_every_protection_profile(form):
             assert ours == _profile(jt, br, tpl), (br, hex(tpl))
             n_accepted += not isinstance(ours, type)
     assert n_accepted > 50          # the sweep really covers the tables
+
+
+# ---------------------------------------------------------------------------
+# TII, the windowed guard interval's tables, the FIR taps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", MODES)
+def test_phase_ref_complex(mode):
+    got = tt.phase_ref_complex(mode)
+    assert got.dtype == np.complex64
+    _same(got.view(np.uint32), jt.phase_ref_complex(mode).view(np.uint32))
+
+
+def test_tii_patterns():
+    _same(tt.tii_patterns(), jt.tii_patterns())
+    assert (tt.tii_patterns().sum(axis=1) == 4).all()
+
+
+@pytest.mark.parametrize("mode", [1, 2])
+def test_tii_acp_every_comb_and_pattern(mode):
+    """All 24 x 70 carrier masks against the reference's (the tii_acp_m*
+    golden, as tests/test_table_sweeps.py reads it) and dabmod_tpu's."""
+    carriers = tt.mode_params(mode).nb_carriers
+    stride = (carriers + 7) // 8
+    blob = load(f"tii_acp_m{mode}").reshape(24 * 70, stride)
+    for k, (comb, pattern) in enumerate(
+            (c, p) for c in range(24) for p in range(70)):
+        ref = np.unpackbits(blob[k], bitorder="little")[:carriers]
+        ours = tt.tii_acp(mode, comb, pattern)
+        _same(ours, ref.astype(bool))
+        _same(ours, jt.tii_acp(mode, comb, pattern))
+
+
+@pytest.mark.parametrize("variant", ["new", "old"])
+@pytest.mark.parametrize("mode", [1, 2])
+def test_tii_symbol_golden(mode, variant):
+    """Comb 5, pattern 31 against the reference's TII symbol (as
+    tests/test_ofdm_golden.py:107-113), and every comb at pattern 31
+    against dabmod_tpu's."""
+    old = variant == "old"
+    got = tt.tii_symbol(mode, comb=5, pattern=31, old_variant=old)
+    _same(got, load(f"tii_m{mode}_{variant}"))
+    for comb in range(24):
+        _same(tt.tii_symbol(mode, comb, 31, old),
+              jt.tii_symbol(mode, comb, 31, old))
+
+
+def test_tii_rejects_what_the_reference_rejects():
+    for mode in (3, 4):
+        with pytest.raises(ValueError, match="mode"):
+            tt.tii_symbol(mode, 5, 31)
+        with pytest.raises(ValueError, match="mode"):
+            jt.tii_symbol(mode, 5, 31)
+    for comb, pattern in ((24, 0), (0, 70), (-1, 0)):
+        with pytest.raises(ValueError, match="comb"):
+            tt.tii_acp(1, comb, pattern)
+
+
+@pytest.mark.parametrize("ov", [0, 10, 90])
+@pytest.mark.parametrize("mode", MODES)
+def test_guard_interval_tables(mode, ov):
+    for a, b in zip(tt.guard_interval_tables(mode, ov),
+                    jt.guard_interval_tables(mode, ov)):
+        _same(a, b)
+
+
+def test_default_fir_taps():
+    assert tt.DEFAULT_FIR_TAPS.dtype == np.float32
+    _same(tt.DEFAULT_FIR_TAPS, jt.DEFAULT_FIR_TAPS)
