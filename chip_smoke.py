@@ -81,12 +81,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    modulate_traced's stage dumps of the DPD chain, and a hot swap of FIR
    taps and poly coefficients between two batches against a modulator
    built with the new ones.  K1's launches in these runs are counted.
+7. The fixed-point engines and the port as a program:
+   * fft_engine=kiss at overlap 0 and 90 on the golden payloads, card ==
+     CPU == the reference's goldens e2e_iq_fixed / e2e_iq_fixed_ov90, bit
+     for bit; TM II-IV at 2 TFs, card == CPU bit for bit;
+   * fft_engine=dexter in TM I and TM III at overlap 0 and 12: the card's
+     Q1.14 symbols and the host chain's wire words == the CPU's;
+   * the runtime in-process on the card (ModRuntime, the 17-sub-channel
+     ensemble, batch_tf=24, an ETI file of 4 batches, the file sink), for
+     three INI files read with parse_ini: (a) s16 at 2.048 MS/s (K1),
+     (b) CFR 40/3 at 8.192 MS/s, complexf (K2, K3), (c) kiss, s16; the
+     kernel launches counted between a reset and a read around each run;
+     the first 2 batches of each file against the same INI run by the
+     runtime on the CPU (s16 within 1 LSB, f32 within 3e-5*max|ref|, kiss
+     byte for byte); a second, warm run timed: ETI frames/s, x real time
+     (an ETI frame is 24 ms), each pipeline stage's share of the wall,
+     beside the step of Modulator.modulate alone from phase 5 (which also
+     times the kiss path);
+   * `python -m dabmod_tpu_torch.cli <ini>` as a subprocess on the card
+     (INI a, 2 batches): exit 0 and the in-process run's bytes.
 
 TF32 is switched off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False): every tolerance below assumes fp32
 arithmetic.  The line before the last is one JSON object with the kernels'
-numbers (and the eager stages' times), labelled with the card's name and
-power limit; the last is
+numbers (and the eager stages' times and the runtime's records), labelled
+with the card's name and power limit; the last is
 {"ok": true, "device": {...}}.
 """
 import itertools
@@ -1148,9 +1167,14 @@ def time_dpd_stages(torch, cpm) -> dict:
 def phase_times(torch, inputs, launches, ptxas):
     """Phase 5; `launches` is phase 4's (summed over paths, per path).
     Returns the eager stages' times and the kernels' records."""
+    from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
     total, per_path = launches
-    for path, (ensembles, extra, _used, fmts) in _paths().items():
-        time_path(torch, path, ensembles[0][1], extra, fmts)
+    steps = {path: time_path(torch, path, ensembles[0][1], extra, fmts)
+             for path, (ensembles, extra, _used, fmts) in _paths().items()}
+    # the kiss engine's step: eager int32 ops, no kernel of the port
+    steps["realistic17_kiss"] = time_path(
+        torch, "realistic17_kiss", REALISTIC_MUX_SPECS,
+        dict(fft_engine="kiss"), ("s16",))
     cpm = sleep_cycles_per_ms(torch)
     log(f"[5] torch.cuda._sleep: {cpm:.0f} cycles a ms")
     stages = time_dpd_stages(torch, cpm)
@@ -1173,7 +1197,7 @@ def phase_times(torch, inputs, launches, ptxas):
                             for p in res_paths[rate]),
                         ptxas["resample_poly"])
           for rate in K3_TIMED_RATES]]
-    return stages, kernels
+    return stages, kernels, steps
 
 
 # ---------------------------------------------------------------------------
@@ -1399,6 +1423,270 @@ def phase_variants(torch):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the fixed-point engines, and the port as a program (the runtime
+# in-process and the CLI as a subprocess)
+# ---------------------------------------------------------------------------
+
+def _kiss_runs(torch, mode, ov, batches):
+    """The kiss chain on the card and on the CPU over `batches` (pairs of
+    FIC and sub-channel arrays), the state carried: {device: [int32 wire
+    words on the host]}."""
+    from dabmod_tpu_torch.config import ModSettings
+    from dabmod_tpu_torch.models import Modulator, make_default_layout
+    specs = BENCH_SPECS if mode == 1 else ((0, 24, 0x22),)
+    s = ModSettings(dab_mode=mode, fft_engine="kiss", ofdm_window_overlap=ov)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = Modulator(make_default_layout(mode, specs), s, device=dev)
+        state, res = m.init_state(), []
+        for fic, subs in batches:
+            words, state, stats = m.modulate(fic, subs, state)
+            check(int(stats["num_clipped"]) == 0, "kiss: num_clipped != 0")
+            res.append(words.cpu().numpy())
+        out[dev] = res
+    return out
+
+
+def phase_fixed_point(torch):
+    """fft_engine=kiss at overlap 0 and 90 on the golden payloads: card,
+    CPU and the reference's goldens equal bit for bit; TM II-IV at 2 TFs,
+    card against CPU bit for bit.  fft_engine=dexter in TM I and TM III at
+    overlap 0 and 12: the card's Q1.14 symbols and the host chain's wire
+    words bit for bit the CPU's."""
+    from dabmod_tpu_torch import tables
+    from dabmod_tpu_torch.config import ModSettings
+    from dabmod_tpu_torch.eti import parse_eti_frames, synth_eti_batch
+    from dabmod_tpu_torch.models import Modulator, make_default_layout
+    t0 = time.perf_counter()
+    golden = [(load_golden("e2e_fixed_fic_in").reshape(8, 96),
+               (load_golden("e2e_fixed_sub0_in").reshape(8, -1),
+                load_golden("e2e_fixed_sub1_in").reshape(8, -1)))]
+    for ov, name in ((0, "e2e_iq_fixed"), (90, "e2e_iq_fixed_ov90")):
+        out = _kiss_runs(torch, 1, ov, golden)
+        ref = load_golden(name)
+        for dev in ("cuda", "cpu"):
+            check(np.array_equal(out[dev][0].view(np.int16).reshape(-1),
+                                 ref), f"[7] kiss overlap {ov} on {dev} "
+                  f"differs from {name}")
+        log(f"[7] kiss TM I overlap {ov}: card == CPU == {name} "
+            f"({ref.size // 2} samples), bit for bit")
+    for mode, ov in ((2, 90), (3, 63), (4, 0)):
+        n = VARIANT_TF * tables.mode_params(mode).cif_count
+        raw = synth_eti_batch(2 * n, mode=mode, seed=SEED + mode)
+        batches = [(b.fic, tuple(b.subchannels)) for b in (
+            parse_eti_frames(raw[:n]), parse_eti_frames(raw[n:]))]
+        out = _kiss_runs(torch, mode, ov, batches)
+        check(all(np.array_equal(g, c) for g, c in zip(out["cuda"],
+                                                       out["cpu"])),
+              f"[7] kiss TM {mode} overlap {ov}: card != CPU")
+        log(f"[7] kiss TM {mode} overlap {ov} ({VARIANT_TF} TFs x 2 "
+            f"batches): card == CPU, bit for bit")
+    for mode, ov in ((1, 0), (1, 12), (3, 0), (3, 12)):
+        p = tables.mode_params(mode)
+        b = parse_eti_frames(synth_eti_batch(p.cif_count, mode=mode,
+                                             seed=SEED + 8))
+        s = ModSettings(dab_mode=mode, fft_engine="dexter",
+                        ofdm_window_overlap=ov)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            m = Modulator(make_default_layout(mode), s, device=dev)
+            syms, _, _ = m.modulate_eti(b, m.init_state())
+            syms = syms.cpu().numpy()
+            got[dev] = (syms, m.host_backend(syms),
+                        m.host_backend.num_clipped)
+        (gs, gw, gn), (cs, cw, cn) = got["cuda"], got["cpu"]
+        check(gs.dtype == np.int32 and gs.shape == (2, 1, p.nb_symbols + 1,
+                                                    p.nb_carriers),
+              f"[7] dexter TM {mode}: symbols {gs.shape} {gs.dtype}")
+        check(np.array_equal(gs, cs), f"[7] dexter TM {mode} overlap {ov}: "
+              f"card symbols != CPU")
+        check(np.array_equal(gw, cw) and gn == cn, f"[7] dexter TM {mode} "
+              f"overlap {ov}: host-chain wire words differ")
+        log(f"[7] dexter TM {mode} overlap {ov}: Q1.14 symbols {gs.shape} "
+            f"and {gw.size} wire words card == CPU, bit for bit "
+            f"(num_clipped {gn})")
+    log(f"[7] fixed-point engines passed in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+RUNTIME_BATCHES = 4          # batches of BATCH_TF TFs in phase 7's ETI file
+RUNTIME_COMPARED = 2         # of them, compared with the CPU runtime's
+ETI_FRAME_S = 0.024
+
+
+def _runtime_inis():
+    """Phase 7's INIs: (modulator keys, other sections, file format, the
+    kernels it must launch, the step of Modulator.modulate alone that
+    phase 5 timed at the same settings)."""
+    return {
+        "a_main_s16": ("", "", "s16", ("ofdm_ifft",), ("main", "s16")),
+        "b_cfr_8m192_complexf": (
+            "rate=8192000\n", "[cfr]\nenable=1\nclip=40.0\nerrorclip=3.0\n",
+            "complexf", ("ofdm_cfr", "resample_poly"),
+            ("realistic17_cfr_8m192", "f32")),
+        "c_kiss_s16": ("fft_engine=kiss\n", "", "s16", (),
+                       ("realistic17_kiss", "s16")),
+    }
+
+
+def _write_ini(d, name, eti, out, tag=""):
+    mod, sections, fmt, _k, _s = _runtime_inis()[name]
+    path = os.path.join(d, f"{name}{tag}.ini")
+    with open(path, "w") as f:
+        f.write(f"[input]\ntransport=file\nsource={eti}\n"
+                f"[modulator]\ngainmode=var\nbatch_tf={BATCH_TF}\n{mod}"
+                f"{sections}[fileoutput]\nfilename={out}\nformat={fmt}\n")
+    return path
+
+
+def _run_runtime(ini, device, max_batches=None):
+    """One run of the runtime on the INI: (wall s of run + close, the
+    runtime)."""
+    from dabmod_tpu_torch.config import parse_ini
+    from dabmod_tpu_torch.runtime import ModRuntime
+    rt = ModRuntime(parse_ini(ini), device=device)
+    t0 = time.perf_counter()
+    code = rt.run(max_batches)
+    rt.close()
+    wall = time.perf_counter() - t0
+    check(code == 0, f"[7] runtime on {ini} ({device}) exited {code}")
+    return wall, rt
+
+
+def _compare_files(name, fmt, got_path, ref_path, engine_fixed):
+    """The card's file against the CPU runtime's, over the CPU file's
+    length: the fixed-point engine byte for byte, s16 within 1 LSB, f32
+    within 3e-5*max|ref|."""
+    ref = np.fromfile(ref_path, np.uint8)
+    got = np.fromfile(got_path, np.uint8, count=ref.size)
+    check(got.size == ref.size > 0, f"[7] {name}: {got.size} bytes of the "
+          f"card's file, {ref.size} of the CPU's")
+    if engine_fixed:
+        check(np.array_equal(got, ref), f"[7] {name}: card != CPU")
+        return "byte for byte"
+    if fmt == "s16":
+        d = int(np.abs(got.view(np.int16).astype(np.int32)
+                       - ref.view(np.int16)).max())
+        check(d <= 1, f"[7] {name}: int16 diff {d} > 1")
+        return f"max int16 diff {d}"
+    g, r = got.view(np.float32), ref.view(np.float32)
+    check(bool(np.isfinite(g).all()), f"[7] {name}: not finite")
+    scale = float(np.abs(r).max())
+    err = float(np.abs(g - r).max())
+    check(err <= 3e-5 * scale, f"[7] {name}: err {err} > {3e-5 * scale}")
+    return f"max abs err {err:.3e} (tol {3e-5 * scale:.3e})"
+
+
+def _per_s(rate):
+    return rate[0] / rate[1] if rate else None
+
+
+def phase_runtime(torch, steps):
+    """The runtime in-process on the card: the 17-sub-channel ensemble,
+    batch_tf=24, an ETI file of RUNTIME_BATCHES batches and the file sink,
+    for each of _runtime_inis() written as an INI file and read with
+    parse_ini; kernel launches counted between a reset and a read around
+    the run; the first RUNTIME_COMPARED batches of the file against the
+    same INI run by the runtime on the CPU; a second, warm run timed
+    (ETI frames/s, x real time, and the share of the wall time in each
+    part of the pipeline) beside the step of Modulator.modulate alone that
+    phase 5 timed.  Then the CLI as a subprocess on the card, INI a over
+    RUNTIME_COMPARED batches: it exits 0 and writes the in-process run's
+    bytes."""
+    from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS, synth_eti_batch
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    _TMP.append(d)
+    frames = synth_eti_batch(RUNTIME_BATCHES * BATCH_TF * 4, mode=1,
+                             subch_specs=REALISTIC_MUX_SPECS, seed=SEED + 7)
+    eti = os.path.join(d, "in.eti")
+    frames.tofile(eti)
+    eti2 = os.path.join(d, "in2.eti")
+    frames[:RUNTIME_COMPARED * BATCH_TF * 4].tofile(eti2)
+    n_frames = frames.shape[0]
+    kernels = _kernels()
+    records = {}
+    for name, (mod, _sec, fmt, used, step_key) in _runtime_inis().items():
+        outs = {tag: os.path.join(d, f"{name}_{tag}.iq")
+                for tag in ("card", "timed", "cpu")}
+        for k in kernels.values():
+            k.launches = 0
+        wall, rt = _run_runtime(_write_ini(d, name, eti, outs["card"]),
+                                "cuda")
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in kernels.items()}
+        check(rt.framecount == n_frames, f"[7] {name}: {rt.framecount} of "
+              f"{n_frames} ETI frames modulated")
+        for k in used:
+            check(counts[k] > 0, f"[7] {name} never launched {k}")
+        _, rt_cpu = _run_runtime(_write_ini(d, name, eti, outs["cpu"]),
+                                 "cpu", RUNTIME_COMPARED)
+        what = _compare_files(name, fmt, outs["card"], outs["cpu"],
+                              "fft_engine" in mod)
+        # the timed run: the modulator comes from get_modulator's cache
+        wall_t, rt_t = _run_runtime(_write_ini(d, name, eti, outs["timed"]),
+                                    "cuda")
+        check(os.path.getsize(outs["timed"]) == os.path.getsize(
+            outs["card"]), f"[7] {name}: the timed run's file differs in "
+              f"size")
+        fps = n_frames / wall_t
+        step = steps[step_key[0]]
+        step_ms = step[f"{step_key[1]}_ms_per_step"]
+        modulate_fps = BATCH_TF * 4 / (step_ms / 1e3)
+        rec = {
+            "ini": name, "format": fmt, "output_rate": rt.settings.output_rate,
+            "eti_frames": n_frames, "batches": RUNTIME_BATCHES,
+            "batch_tf": BATCH_TF, "launches": counts,
+            "bytes_out": os.path.getsize(outs["timed"]),
+            "cold_wall_s": wall, "wall_s": wall_t,
+            "frames_per_s": fps, "realtime_x": fps * ETI_FRAME_S,
+            "process_rate_frames_per_s": _per_s(rt_t.process_rate()),
+            "modulate_step_ms": step_ms,
+            "modulate_frames_per_s": modulate_fps,
+            "runtime_over_modulate": fps / modulate_fps,
+            "share_of_wall": {k: v / wall_t for k, v in
+                              rt_t.timings.items()},
+            "vs_cpu": what, "cpu_frames_compared": rt_cpu.framecount}
+        records[name] = rec
+        log(f"[7] runtime {name}: {n_frames} ETI frames on the card, "
+            f"launches {counts}; first {RUNTIME_COMPARED} batches vs the "
+            f"CPU runtime: {what}; warm run {wall_t:.3f} s = "
+            f"{fps:.1f} frames/s = {fps * ETI_FRAME_S:.2f}x real time "
+            f"(cold {wall:.3f} s); modulate alone {step_ms:.3f} ms a step = "
+            f"{modulate_fps:.1f} frames/s; share of wall "
+            f"{json.dumps(rec['share_of_wall'])}")
+        for path in outs.values():
+            os.remove(path)
+
+    # the CLI as a subprocess on the card, INI a over RUNTIME_COMPARED
+    # batches, against the in-process run of the same INI and ETI file
+    _run_runtime(_write_ini(d, "a_main_s16", eti2,
+                            os.path.join(d, "inproc.iq"), "_inproc"), "cuda")
+    ini = _write_ini(d, "a_main_s16", eti2, os.path.join(d, "cli.iq"),
+                     "_cli")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dabmod_tpu_torch.cli", ini],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[7] the CLI exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    with open(os.path.join(d, "cli.iq"), "rb") as f:
+        cli_bytes = f.read()
+    with open(os.path.join(d, "inproc.iq"), "rb") as f:
+        inproc = f.read()
+    check(len(cli_bytes) == len(inproc) > 0 and cli_bytes == inproc,
+          f"[7] the CLI's file ({len(cli_bytes)} bytes) differs from the "
+          f"in-process run's ({len(inproc)} bytes)")
+    log(f"[7] python -m dabmod_tpu_torch.cli {os.path.basename(ini)}: exit "
+        f"0 in {cli_s:.1f} s, {len(cli_bytes)} bytes equal to the "
+        f"in-process run's; its last log line: "
+        f"{proc.stderr.strip().splitlines()[-1] if proc.stderr else ''}")
+    log(f"[7] runtime phase passed in {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1418,16 +1706,27 @@ def main():
         inputs = phase_kernels(torch)
         phase_frontend(torch)
         launches = phase_paths(torch)
-        stages, kernels = phase_times(torch, inputs, launches, ptxas)
+        stages, kernels, steps = phase_times(torch, inputs, launches, ptxas)
         variant_launches = phase_variants(torch)
+        phase_fixed_point(torch)
+        runtime = phase_runtime(torch, steps)
     finally:
         for d in _TMP:
             shutil.rmtree(d, ignore_errors=True)
-    # K1's launches in phase 6, beside those of the full-width paths
+    # K1's launches in phase 6 and each kernel's in phase 7, beside those of
+    # the full-width paths of phase 4
     kernels[0]["variant_launches"] = variant_launches["ofdm_ifft"]
+    for k in kernels:
+        base = "resample_poly" if k["name"].startswith("resample_poly") \
+            else k["name"]
+        k["runtime_launches"] = {
+            ini: rec["launches"][base] for ini, rec in runtime.items()
+            if k.get("rate", 8_192_000) == rec["output_rate"]
+            or base != "resample_poly"}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": card, "kernels": kernels,
-                      "eager_stages": stages}), flush=True)
+                      "eager_stages": stages, "runtime": runtime}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

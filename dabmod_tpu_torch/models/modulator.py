@@ -21,12 +21,18 @@ the frequency-domain form) -> DPD (polynomial or LUT) -> wire format (f32
 planes, f32 pairs, s16, u8 or s8).  TM I-IV.  FIR taps and DPD
 coefficients are tensors passed to each step, so a hot swap
 (update_fir_taps, update_dpd) replaces tensors and rebuilds nothing.
-fft_engine=kiss|dexter raises NotImplementedError naming the ROADMAP.md
-item that ports it.
+
+The two fixed-point engines branch off after the NULL symbol, as in
+dabmod_tpu: fft_engine=kiss runs the reference's KISS int16 transform and
+the Q1.14 guard interval bit for bit (ops/kiss_fixed.py, int32 torch ops)
+into s16 wire words; fft_engine=dexter ends on the device at Q1.14 carrier
+symbols [2, B, S, C] (int32), and `host_backend` (io/dexter_fft.py) runs
+the FPGA FFT accelerator chain on them on the host.
 """
 from __future__ import annotations
 
 import collections
+import logging
 import os
 
 import numpy as np
@@ -35,7 +41,7 @@ import torch
 from .. import tables
 from ..config import ModSettings
 from ..eti import EnsembleLayout, EtiFrameBatch
-from ..ops import fec, fft, ofdm, ofdm_kernel, resampler_kernel
+from ..ops import fec, fft, kiss_fixed, ofdm, ofdm_kernel, resampler_kernel
 from ..ops.cplx import planes_from_complex, planes_to_pairs
 from ..ops.filters import (PLAIN_BLOCK, PolyphasePlan, ResamplerPlan,
                            cic_equalizer_taps, fir_filter, format_convert,
@@ -43,6 +49,8 @@ from ..ops.filters import (PLAIN_BLOCK, PolyphasePlan, ResamplerPlan,
                            pack_s16_planes, resample, resample_poly)
 
 BASE_RATE = 2_048_000        # the modulator's native sample rate
+
+log = logging.getLogger("dabmod_tpu_torch.modulator")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -54,11 +62,6 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available: the modulator runs on the CUDA card by "
             "default; pass device='cpu' to run it on the CPU")
     return dev
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to dabmod_tpu_torch yet (ROADMAP {item})")
 
 
 def resampler_route(s: ModSettings, spacing: int):
@@ -124,8 +127,25 @@ class Modulator:
                  settings: ModSettings | None = None, device=None):
         self.layout = layout
         self.settings = s = settings or ModSettings()
-        if s.fft_engine != "fftw":
-            raise _not_ported(f"fft_engine={s.fft_engine}", "A9")
+        # fft_engine=kiss|dexter: the reference's fixed-point configuration
+        # -- Q1.14 output, no GainControl, and the float-only back-end
+        # stages rejected (src/DabModulator.cpp:144-263)
+        self._kiss = s.fft_engine == "kiss"
+        self._dexter = s.fft_engine == "dexter"
+        if self._kiss or self._dexter:
+            if s.filter_taps_file:
+                raise ValueError("fixed point doesn't support fir filter")
+            if s.poly_coef_file:
+                raise ValueError("fixed point doesn't support predistortion")
+            if s.output_rate != BASE_RATE:
+                raise ValueError("fixed point doesn't support resampler")
+            if s.enable_cfr:
+                raise ValueError("fixed point doesn't support CFR")
+            if s.output in ("soapy", "lime", "bladerf"):
+                # these drivers re-scale float samples themselves and have
+                # no native fixed-point stream path
+                # (ref: src/DabMod.cpp:306,326,337)
+                raise ValueError(f"{s.output} fixed_point unsupported")
         fft.set_precision(s.fft_precision)
         self.device = dev = resolve_device(device)
         mode = s.dab_mode if s.dab_mode else layout.dab_mode
@@ -239,6 +259,34 @@ class Modulator:
         self._runtime_params = self._make_runtime_params()
 
         self._wire_fmt = _wire_format(s)
+        if self._kiss:
+            # the kiss configuration's wire format is complexfix: Q1.14
+            # int16 pairs, in memory the same as interleaved s16
+            self._wire_fmt = "s16"
+
+        # the host back end the runtime's fetch thread applies to the
+        # fetched output (None for the chains that end on the device): for
+        # dexter the device emits Q1.14 symbols [2, B, S, C] and the chain
+        # makes the s16 wire (accelerator + wide GI + FormatConverter)
+        self.host_backend = None
+        if self._dexter:
+            from ..io import dexter_fft
+            try:
+                import iio as _iio  # noqa: PLC0415
+            except ImportError:
+                _iio = None
+            if _iio is None or not hasattr(_iio, "Context"):
+                log.warning("fft_engine=dexter: vendor libiio absent -- "
+                            "using the software accelerator model")
+                _iio = dexter_fft.MockFftAcceleratorIio(p.spacing)
+            self.host_backend = dexter_fft.DexterOfdmChain(
+                p, s.ofdm_window_overlap, iio_module=_iio)
+            self._wire_fmt = "s16"
+
+        # f32 planes contract (ModSettings.device_interleave): the runtime's
+        # fetch thread interleaves the pairs on the host
+        self.emits_planes = (self._wire_fmt is None
+                             and not s.device_interleave)
 
         # per-stage debug tap (the reference's --enable-trace node dumps,
         # src/Flowgraph.cpp:62-70,177-194): None except inside
@@ -492,6 +540,43 @@ class Modulator:
         new_state["res_carry"] = carry
         return tuple(x.reshape(B, -1) for x in y)
 
+    def _q14(self, symbols):
+        """Carrier-order Q1.14 integer planes of the OFDM symbols: the
+        deferred frequency interleave restored, then rint(x * 16384)
+        (torch.round rounds half to even, as jnp.rint does)."""
+        return tuple(
+            torch.round(ofdm.freq_interleave(x, self._inv_perm_t)
+                        * 16384.0).to(torch.int32) for x in symbols)
+
+    def _dexter_symbols(self, symbols):
+        """fft_engine=dexter: the transform belongs to the FPGA FFT
+        accelerator, so the device's job ends at Q1.14 carrier symbols
+        [2, B, S, C] int32; host_backend does the rest
+        (src/DabModulator.cpp:214-277)."""
+        out = torch.stack(self._q14(symbols))
+        self._t("dexter_quantise", out)
+        return out
+
+    def _kiss_chain(self, symbols):
+        """fft_engine=kiss: the whole back end in exact int16 arithmetic,
+        bit-identical to the reference's KISS chain (per-stage rounding
+        and all), into packed int32 wire words [B, tf_samples]."""
+        p = self.p
+        bins = ofdm.to_bins_slices(self._q14(symbols), p.nb_carriers,
+                                   p.spacing)
+        td = kiss_fixed.kiss_fft_fixed(*bins, inverse=True)
+        self._t("kiss_ifft", td)
+        ov = self.settings.ofdm_window_overlap
+        if ov:
+            iq = kiss_fixed.guard_interval_windowed_fixed(
+                td, p.null_size, p.sym_size, ov)
+        else:
+            iq = ofdm.guard_interval_unwindowed(td, p.null_size, p.sym_size)
+        self._t("guard_interval", iq)
+        # (im << 16) | (re & 0xFFFF), written without a shift of a negative
+        # value: im * 2**16 stays within int32 for every int16 im
+        return iq[1] * 65536 + (iq[0] & 0xFFFF)
+
     def _modulate_impl(self, fic_bytes, subch_bytes, state,
                        constant_gain: float, var_k: float, rp: dict):
         p = self.p
@@ -502,6 +587,14 @@ class Modulator:
         B = symbols[0].shape[0]
         new_state = {"ti_history": new_hist,
                      "tf_index": state["tf_index"] + B}
+        if self._dexter:
+            return self._dexter_symbols(symbols), new_state, {}
+        if self._kiss:
+            return self._kiss_chain(symbols), new_state, {
+                # the reference's kiss chain has no FormatConverter (and so
+                # no clip counter); the stat stays for RC parity
+                "num_clipped": torch.zeros((), dtype=torch.int32,
+                                           device=self.device)}
         stats = {}
 
         # the hand-written OFDM kernels on the card (the plain versions on
@@ -567,7 +660,10 @@ class Modulator:
         * f32 pairs [B, tf_samples_out, 2] with device_interleave=True;
         * int32 wire words for an integer output, with stats["num_clipped"]:
           [B, tf_samples_out] for s16 (one (re, im) pair a word),
-          [B, tf_samples_out / 2] for u8 and s8 (four bytes a word).
+          [B, tf_samples_out / 2] for u8 and s8 (four bytes a word);
+          fft_engine=kiss gives s16 words too (num_clipped 0);
+        * fft_engine=dexter: Q1.14 carrier symbols [2, B, S, C] int32, for
+          `host_backend`, and no stats.
 
         With CFR, stats also holds per TF [B]: "cfr_clip" and "cfr_errclip"
         (int32 counts), "papr_before_cfr", "papr_after_cfr" and "mer_db"

@@ -628,3 +628,126 @@ def test_hot_swap_on_card(card, tmp_path):
     want, _, _ = fresh.modulate_eti(b2, st_f)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the fixed-point engines and the runtime on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_int32_shift_and_mask_on_card(card):
+    """The kiss arithmetic's two integer assumptions on CUDA tensors: `>>`
+    on a signed int32 is arithmetic, `& 65535` is two's complement."""
+    x = torch.tensor([-65536, -32769, -2, -1, 0, 1, 2**31 - 1],
+                     dtype=torch.int32)
+    got = x.to(card)
+    assert torch.equal(torch.bitwise_right_shift(got, 15).cpu(),
+                       torch.bitwise_right_shift(x, 15))
+    assert torch.equal((got & 65535).cpu(), x & 65535)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,ov", [(1, 0), (1, 90), (2, 90), (3, 63),
+                                     (4, 0)])
+def test_kiss_on_card_equals_cpu(card, mode, ov):
+    """fft_engine=kiss on the card, bit for bit the CPU's (two batches,
+    the state carried), at every TM's transform size."""
+    p = tables.mode_params(mode)
+    n = 2 * p.cif_count
+    raw = synth_eti_batch(2 * n, mode=mode, seed=mode)
+    s = ModSettings(dab_mode=mode, fft_engine="kiss", ofdm_window_overlap=ov)
+    outs = {}
+    for dev in (card, "cpu"):
+        m = Modulator(make_default_layout(mode), s, device=dev)
+        st, res = m.init_state(), []
+        for i in range(2):
+            out, st, stats = m.modulate_eti(
+                parse_eti_frames(raw[n * i:n * (i + 1)]), st)
+            res.append(out.cpu())
+            assert int(stats["num_clipped"]) == 0
+        outs[str(dev)] = res
+    for g, c in zip(outs["cuda"], outs["cpu"]):
+        assert g.dtype == torch.int32 and torch.equal(g, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 3])
+def test_dexter_on_card_equals_cpu(card, mode):
+    """fft_engine=dexter: the card's Q1.14 symbols and the host chain's
+    wire words, bit for bit the CPU's."""
+    p = tables.mode_params(mode)
+    raw = synth_eti_batch(p.cif_count, mode=mode, seed=mode)
+    s = ModSettings(dab_mode=mode, fft_engine="dexter",
+                    ofdm_window_overlap=12)
+    got = {}
+    for dev in (card, "cpu"):
+        m = Modulator(make_default_layout(mode), s, device=dev)
+        syms, _, _ = m.modulate_eti(parse_eti_frames(raw), m.init_state())
+        syms = syms.cpu().numpy()
+        got[str(dev)] = (syms, m.host_backend(syms))
+    for g, c in zip(got["cuda"], got["cpu"]):
+        np.testing.assert_array_equal(g, c)
+
+
+def _runtime_file(tmp_path, fmt, device, **kw):
+    from dabmod_tpu_torch.runtime import ModRuntime
+    inp = tmp_path / "in.eti"
+    if not inp.exists():
+        inp.write_bytes(synth_eti_batch(32, mode=1, subch_specs=BENCH_SPECS,
+                                        seed=12).tobytes())
+    out = tmp_path / f"{device}_{fmt}.iq"
+    s = ModSettings(input_name=str(inp), output="file", output_name=str(out),
+                    file_output_format=fmt, batch_tf=2,
+                    **kw).normalise_for_output()
+    rt = ModRuntime(s, device=device)
+    assert rt.run() == 0
+    rt.close()
+    return out.read_bytes(), rt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,kw", [
+    ("complexf", {}), ("s16", {}),
+    ("complexf", dict(enable_cfr=True, cfr_clip=40.0, cfr_error_clip=3.0,
+                      output_rate=8_192_000)),
+    ("s16", dict(fft_engine="kiss")), ("s16", dict(fft_engine="dexter"))],
+    ids=["complexf", "s16", "cfr_8m192", "kiss", "dexter"])
+def test_runtime_on_card_equals_cpu(card, tmp_path, fmt, kw):
+    """ModRuntime on the card (ETI bytes in and output out through pinned
+    host memory, non_blocking copies and an event) writes the file the CPU
+    runtime writes: f32 within 3e-5*max|ref|, s16 within 1 LSB, the
+    fixed-point engines byte for byte."""
+    got, rt = _runtime_file(tmp_path, fmt, "cuda", **kw)
+    assert rt.device.type == "cuda" and rt.timings["fetch_wait_s"] >= 0
+    ref, _ = _runtime_file(tmp_path, fmt, "cpu", **kw)
+    assert len(got) == len(ref) > 0
+    if kw.get("fft_engine"):
+        assert got == ref
+    elif fmt == "s16":
+        d = np.abs(np.frombuffer(got, np.int16).astype(np.int32)
+                   - np.frombuffer(ref, np.int16))
+        assert d.max() <= 1
+    else:
+        g, r = np.frombuffer(got, np.float32), np.frombuffer(ref, np.float32)
+        np.testing.assert_allclose(g, r, atol=3e-5 * np.abs(r).max())
+
+
+@pytest.mark.cuda
+def test_runtime_uploads_through_pinned_memory(card, tmp_path):
+    """ETI bytes (a strided view, as a parsed batch's sub-channel is) go
+    to the card through pinned memory; the output comes back into pinned
+    memory."""
+    from dabmod_tpu_torch.runtime import ModRuntime
+    inp = tmp_path / "in.eti"
+    inp.write_bytes(synth_eti_batch(4, mode=1).tobytes())
+    rt = ModRuntime(ModSettings(input_name=str(inp), output="file",
+                                output_name=str(tmp_path / "o.iq")),
+                    device=card)
+    a = np.arange(6 * 96, dtype=np.uint8).reshape(6, 96)[:, ::2]
+    up = rt._upload(a)
+    assert up.device.type == "cuda" and torch.equal(up.cpu(),
+                                                    torch.from_numpy(a.copy()))
+    down = rt._download(up)
+    torch.cuda.synchronize()
+    assert down.is_pinned() and torch.equal(down, up.cpu())
+    rt.close()

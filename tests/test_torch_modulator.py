@@ -29,6 +29,7 @@ from dabmod_tpu_torch.models import (Modulator, clear_modulator_cache,
                                      state_from_numpy)
 from dabmod_tpu_torch.ops import cplx, filters
 from golden import load
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_SPECS = ((0, 24, 0x22), (48, 48, 0x02))     # bench.py's ensemble
@@ -371,14 +372,47 @@ def test_default_device_is_cuda():
     assert Modulator(layout, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"fft_engine": "kiss"}, "A9"),
-    ({"fft_engine": "dexter"}, "A9"),
-])
-def test_unsupported_settings_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        Modulator(make_default_layout(1), ModSettings(dab_mode=1, **kw),
-                  device="cpu")
+# what the port does not run yet: the inputs and outputs of ROADMAP
+# A10(b), which the runtime refuses when it opens them
+A10B_SETTINGS = [
+    {"input_transport": "tcp", "input_name": "tcp://127.0.0.1:9200"},
+    {"input_transport": "zmq", "input_name": "zmq+tcp://127.0.0.1:9100"},
+    {"input_transport": "edi", "input_name": "udp://:12000"},
+    {"input_name": "tcp://127.0.0.1:9200"},
+    *({"output": out} for out in ("zmq", "uhd", "soapy", "lime", "bladerf",
+                                  "dexter", "loopback")),
+]
+
+
+@pytest.mark.parametrize("kw", A10B_SETTINGS)
+def test_unsupported_settings_raise(kw, tmp_path):
+    from dabmod_tpu_torch.runtime import ModRuntime
+    eti = tmp_path / "in.eti"
+    eti.write_bytes(synth_eti_batch(4, mode=1).tobytes())
+    kw = {"input_name": str(eti), "output": "file",
+          "output_name": str(tmp_path / "out.iq"), **kw}
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A10\(b\)"):
+        ModRuntime(ModSettings(**kw).normalise_for_output(), device="cpu")
+
+
+# fft_engine=kiss|dexter, which raised NotImplementedError until ROADMAP A9
+# was ported: each now runs, and matches dabmod_tpu bit for bit
+A9_SETTINGS = [{"fft_engine": "kiss"}, {"fft_engine": "dexter"}]
+
+
+@pytest.mark.usefixtures("one_intra_op_thread")
+@pytest.mark.parametrize("kw", A9_SETTINGS)
+def test_a9_settings_match_reference(kw):
+    b = parse_eti_frames(synth_eti_batch(8, mode=1, subch_specs=BENCH_SPECS,
+                                         seed=22))
+    mj = _jax(**kw)
+    ref, ref_state, ref_stats = mj.modulate(b.fic, tuple(b.subchannels),
+                                            mj.init_state())
+    m = _port(**kw)
+    got, state, stats = m.modulate_eti(b, m.init_state())
+    assert set(state) == set(ref_state) and set(stats) == set(ref_stats)
+    assert m.emits_planes == mj.emits_planes is False
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
 # the settings that raised NotImplementedError until ROADMAP A7 and A8
@@ -443,6 +477,13 @@ def test_inactive_cic_rate_is_accepted():
     assert m.device.type == "cpu"
 
 
+# the modules the runtime and the fixed-point engines brought in
+PORT_MODULES = ["dabmod_tpu_torch." + m for m in (
+    "runtime", "cli", "config", "io.readers", "io.outputs",
+    "io.fic_decoder", "io.dexter_fft", "rc", "events", "timestamps",
+    "utils", "ops.kiss_fixed")]
+
+
 def test_port_imports_no_jax():
     """Importing every module of dabmod_tpu_torch loads neither jax nor
     any module of dabmod_tpu."""
@@ -450,7 +491,9 @@ def test_port_imports_no_jax():
         "import pkgutil, sys, importlib, dabmod_tpu_torch\n"
         "mods = [importlib.import_module(m.name) for m in pkgutil."
         "walk_packages(dabmod_tpu_torch.__path__, 'dabmod_tpu_torch.')]\n"
-        "assert len(mods) >= 12, mods\n"
+        "assert len(mods) >= 27, mods\n"
+        f"missing = set({PORT_MODULES!r}) - set(m.__name__ for m in mods)\n"
+        "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'dabmod_tpu' or "
         "m.startswith('dabmod_tpu.'))\n"
