@@ -100,11 +100,29 @@ Phases, in order; any failure exits non-zero and prints no result:
      times the kiss path);
    * `python -m dabmod_tpu_torch.cli <ini>` as a subprocess on the card
      (INI a, 2 batches): exit 0 and the in-process run's bytes.
+8. The live inputs into the SDR sinks (ModRuntime in-process, INI files,
+   the 17-sub-channel ensemble, batch_tf=24, a stream of 4 batches):
+   (d) EDI over TCP (tests/live_stream.py's sender, the port's EDI
+   encoder, timestamps 60 s ahead of the wall clock) into the DPD chain
+   of realistic17_dpd_8m192, f32, out to the loopback SDR with the DPD
+   feedback server and timestamps on (K2, K3); (e) ETI over TCP into an
+   s16 SDR sink (output=dexter's wire and scale, the DEXTER driver
+   replaced by a recording device) (K1).  Each: the kernel launches
+   counted between a reset and a read; the transmitted frames of the
+   first 2 batches against the CPU runtime's on the same stream, matched
+   by timestamp (d: f32 within 1e-4*max|ref|, the timestamps equal and
+   the EDI stream's) or FCT (e: within 1 LSB); the SDR counters (frames +
+   overflows + dropped + muted) adding up to the TFs written; a warm run
+   timed.  (d) also: chip_smoke's own feedback client gets a TX burst
+   equal to the frame sent under its timestamp, and RX = gain*TX.
+   (e) also: the pinned host memory Python references before and after
+   the run, and the batch buffers the SDR queue's frames held at most.
 
 TF32 is switched off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False): every tolerance below assumes fp32
 arithmetic.  The line before the last is one JSON object with the kernels'
-numbers (and the eager stages' times and the runtime's records), labelled
+numbers (and the eager stages' times and the runtime's and the live
+phase's records), labelled
 with the card's name and power limit; the last is
 {"ok": true, "device": {...}}.
 """
@@ -1687,12 +1705,412 @@ def phase_runtime(torch, steps):
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the live inputs and the SDR sinks (ROADMAP A10(b))
+# ---------------------------------------------------------------------------
+
+LIVE_BATCHES = 4             # batches of BATCH_TF TFs a stream carries
+LIVE_COMPARED = 2            # of them, compared with the CPU runtime's
+LIVE_MARGIN_S = 60.0         # the EDI timestamps' lead on the wall clock
+FB_SAMPLES = 32768           # samples the feedback client asks for: the
+                             # NULL symbol (10,624 at 8.192 MS/s) and two
+                             # symbols after it
+FB_ATTEMPTS = 4              # requests before the client gives up
+FB_TXGAIN, FB_RXGAIN = 10.0, 6.0     # dB; the loopback's RX gain is their sum
+
+
+def _buffer_of(frame):
+    """(address, bytes) of the whole buffer a frame views: the batch it
+    was cut from (a numpy view of a host tensor, or an array)."""
+    base = frame
+    while isinstance(base, np.ndarray) and base.base is not None:
+        base = base.base
+    if isinstance(base, np.ndarray):
+        return base.ctypes.data, base.nbytes
+    storage = base.untyped_storage()        # a host tensor: no CUDA call
+    return storage.data_ptr(), storage.nbytes()
+
+
+def _record_device(dev, keep_tf, out=None):
+    """Wrap dev.transmit_frame: every frame's (timestamp key, FCT) in
+    order, and a copy of the first keep_tf frames and of every frame's
+    first FB_SAMPLES samples; with `out` (the SdrOutput), the most bytes
+    of batch buffers that the frames in its queue held at once."""
+    rec = {"order": [], "frames": {}, "heads": {}, "held_bytes": 0}
+    transmit = dev.transmit_frame
+
+    def recording(samples, ts):
+        if out is not None:
+            held = dict(_buffer_of(f) for f, _ in list(out.queue.queue))
+            held.update([_buffer_of(samples)])
+            rec["held_bytes"] = max(rec["held_bytes"], sum(held.values()))
+        key = (int(ts.seconds), int(ts.pps)) if ts.valid else None
+        fct = int(ts.fct)
+        rec["order"].append((key, fct))
+        tag = key if key is not None else fct
+        if len(rec["order"]) <= keep_tf:
+            rec["frames"][tag] = np.array(samples)
+        rec["heads"][tag] = np.array(np.asarray(samples).reshape(
+            -1, 2 if samples.dtype != np.int32 else 1)[:FB_SAMPLES])
+        return transmit(samples, ts)
+
+    dev.transmit_frame = recording
+    return rec
+
+
+def _feedback_client(port, result):
+    """chip_smoke's own client of the DPD feedback server; the server waits
+    5 s for the next frame and closes the connection without a reply if
+    none came, so the client asks again, a few times."""
+    from live_stream import feedback_request
+    for _ in range(FB_ATTEMPTS):
+        try:
+            r = feedback_request(port, FB_SAMPLES)
+        except OSError as e:
+            result["error"] = repr(e)
+            continue
+        if r is None:
+            result["error"] = "the server closed without a reply"
+            continue
+        result.pop("error", None)
+        n, tx_key, tx, rx_key, rx = r
+        result.update(n=n, tx_key=tx_key, rx_key=rx_key, tx=tx, rx=rx)
+        return
+
+
+def _live_ini(d, name, source, transport, extra, output):
+    path = os.path.join(d, f"{name}.ini")
+    with open(path, "w") as f:
+        f.write(f"[input]\ntransport={transport}\nsource={source}\n"
+                f"[modulator]\ngainmode=var\nbatch_tf={BATCH_TF}\n{extra}"
+                f"{output}")
+    return path
+
+
+def _pinned_stats(torch) -> dict:
+    """Pinned host memory: the bytes of the pinned tensors Python still
+    references (counted here, one storage once), and the pinned host
+    allocator's own statistics: allocated (its pool, handed out and
+    cached) and active, current and peak."""
+    import gc
+    gc.collect()
+    live = {}
+    for o in gc.get_objects():
+        if (isinstance(o, torch.Tensor) and o.device.type == "cpu"
+                and o.is_pinned()):
+            s = o.untyped_storage()
+            live[s.data_ptr()] = s.nbytes()
+    out = {"live_pinned_bytes": sum(live.values())}
+    try:
+        stats = torch.cuda.host_memory_stats()
+    except (AttributeError, RuntimeError):
+        return out          # a build without host memory statistics
+    out.update({k: v for k, v in stats.items()
+                if k.split(".")[0] in ("active_bytes", "allocated_bytes")
+                and k.split(".")[-1] in ("current", "peak")})
+    return out
+
+
+def _run_live(torch, ini, device, batches, keep_tf, fb=None):
+    """One run of the runtime on a live INI: ModRuntime.run(batches) on
+    the main thread (the stream never ends by itself), with the SDR
+    device's frames recorded; `fb` (a dict) runs the feedback client in a
+    thread during the run.  Returns (wall s of run + close, the runtime,
+    the record, the SdrOutput's counters); rt.run_s is the run's own time
+    (run() flushes the sink's writes before it returns; close then stops
+    the SDR device thread and the feedback server, whose socket waits tick
+    at 0.2 and 0.5 s)."""
+    import threading
+    from dabmod_tpu_torch.config import parse_ini
+    from dabmod_tpu_torch.runtime import ModRuntime
+    s = parse_ini(ini)
+    rt = ModRuntime(s, device=device)
+    rec = _record_device(rt.output.device, keep_tf, rt.output)
+    if s.output == "loopback":
+        # the loopback keeps its last frames for the feedback server's RX
+        # read; a batch queues BATCH_TF of them at once
+        rt.output.device._hist_max = 2 * BATCH_TF
+    th = None
+    if fb is not None:
+        th = threading.Thread(target=_feedback_client,
+                              args=(s.sdr_dpd_port, fb), daemon=True)
+        th.start()
+    t0 = time.perf_counter()
+    code = rt.run(batches)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    rt.run_s = time.perf_counter() - t0
+    rt.close()
+    wall = time.perf_counter() - t0
+    if th is not None:
+        th.join(timeout=30)
+        check(not th.is_alive(), "[8] the feedback client did not finish")
+    out = rt.output
+    counters = {k: getattr(out, k) for k in
+                ("frames", "queue_overflows", "dropped", "muted",
+                 "underruns", "timestamp_discontinuities")}
+    check(code == 0, f"[8] runtime on {ini} ({device}) exited {code}")
+    check(out.fault is None, f"[8] {ini}: SDR device fault {out.fault!r}")
+    check(rt.framecount == batches * BATCH_TF * 4,
+          f"[8] {ini} ({device}): {rt.framecount} ETI frames modulated, "
+          f"not {batches * BATCH_TF * 4}")
+    n_tf = rt.framecount // 4
+    check(counters["frames"] + counters["queue_overflows"]
+          + counters["dropped"] + counters["muted"] == n_tf,
+          f"[8] {ini} ({device}): counters {counters} do not add up to "
+          f"the {n_tf} TFs written")
+    return wall, rt, rec, counters
+
+
+def _compare_live(name, got, ref, fmt):
+    """The card's transmitted frames against the CPU's, matched by
+    timestamp (or FCT where frames carry none): f32 within
+    DPD_REL*max|ref| (the DPD path), s16 within 1 LSB."""
+    common = sorted(set(got["frames"]) & set(ref["frames"]),
+                    key=lambda k: (k is None, k))
+    check(len(common) > 0, f"[8] {name}: no transmitted frame in common")
+    worst = 0.0
+    for k in common:
+        g, r = got["frames"][k], ref["frames"][k]
+        check(g.shape == r.shape and g.dtype == r.dtype,
+              f"[8] {name} {k}: {g.shape} {g.dtype} vs {r.shape} {r.dtype}")
+        if fmt == "s16":
+            d = int(np.abs(g.view(np.int16).astype(np.int32)
+                           - r.view(np.int16)).max())
+            check(d <= 1, f"[8] {name} {k}: int16 diff {d} > 1")
+            worst = max(worst, d)
+        else:
+            check(bool(np.isfinite(g).all()), f"[8] {name}: not finite")
+            tol = DPD_REL * float(np.abs(r).max())
+            err = float(np.abs(g - r).max())
+            check(err <= tol, f"[8] {name} {k}: err {err} > {tol}")
+            worst = max(worst, err / tol)
+    return common, worst
+
+
+def phase_live(torch):
+    """Phase 8: the live inputs into the SDR sinks, the 17-sub-channel
+    ensemble, batch_tf=24, LIVE_BATCHES batches a stream.
+    (d) EDI over TCP (the port's encoder in a sender thread, which is the
+    TCP server) into realistic17_dpd_8m192's settings, f32, out to the
+    loopback SDR with the DPD feedback server, timestamps on; (e) ETI over
+    TCP into an s16 SdrOutput (output=dexter's wire and scale, its driver
+    replaced by a recording device).  Each: kernel launches between a
+    reset and a read; the transmitted frames against the CPU runtime's on
+    the same stream over LIVE_COMPARED batches, matched by timestamp
+    (EDI) or FCT (ETI); the SDR counters adding up to the TFs written;
+    a warm run timed.  (d) also: chip_smoke's own feedback client gets a
+    TX burst equal to the frame sent under its timestamp, and RX =
+    gain*TX.  (e) also: pinned host memory before and after."""
+    from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS, synth_eti_batch
+    from dabmod_tpu_torch.io import sdr
+    from live_stream import (FRAME_TICKS, PPS_HZ, TcpServer, edi_stream,
+                             free_port)
+    t_phase = time.perf_counter()
+    poly = dpd_files()["poly"]
+    d = tempfile.mkdtemp(prefix="chip_smoke_live_")
+    _TMP.append(d)
+    frames = synth_eti_batch(LIVE_BATCHES * BATCH_TF * 4, mode=1,
+                             subch_specs=REALISTIC_MUX_SPECS, seed=SEED + 8)
+    n_tf = LIVE_BATCHES * BATCH_TF
+    keep = LIVE_COMPARED * BATCH_TF
+    kernels = _kernels()
+    records = {}
+
+    # (d) EDI over TCP -> DPD chain -> loopback SDR + feedback server
+    t0 = time.time() + LIVE_MARGIN_S
+    t_enc = time.perf_counter()
+    edi = TcpServer(b"".join(edi_stream(frames, t0)))
+    enc_s = time.perf_counter() - t_enc
+    dpd = ("rate=8192000\nofdmwindowing=90\n[cfr]\nenable=1\nclip=40.0\n"
+           "errorclip=3.0\n[tii]\nenable=1\ncomb=5\npattern=31\n"
+           "[firfilter]\nenabled=1\n[poly]\nenabled=1\n"
+           f"polycoeffile={poly}\n"
+           "[delaymanagement]\nsynchronous=1\noffset=0\n")
+    loop = (f"[loopbackoutput]\nchannel=12C\ntxgain={FB_TXGAIN}\n"
+            f"rxgain={FB_RXGAIN}\ndpd_port={{port}}\n")
+    src = f"tcp://127.0.0.1:{edi.port}"
+    name = "d_edi_dpd_8m192_loopback"
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        fb = {}
+        ini = _live_ini(d, name, src, "edi", dpd,
+                        loop.format(port=free_port()))
+        wall, rt, got, counters = _run_live(torch, ini, "cuda",
+                                            LIVE_BATCHES, keep, fb)
+        counts = {k: f.launches for k, f in kernels.items()}
+        for k in ("ofdm_cfr", "resample_poly"):
+            check(counts[k] > 0, f"[8] {name} never launched {k}")
+        check(counters["frames"] == n_tf and counters["dropped"] == 0,
+              f"[8] {name}: counters {counters}, {n_tf} TFs sent")
+        _, rt_cpu, ref, _ = _run_live(
+            torch, _live_ini(d, name + "_cpu", src, "edi", dpd,
+                             loop.format(port=free_port())),
+            "cpu", LIVE_COMPARED, keep)
+        common, worst = _compare_live(name, got, ref, "f32")
+        got_keys = [k for k, _ in got["order"][:keep]]
+        ref_keys = [k for k, _ in ref["order"][:keep]]
+        check(None not in got_keys and got_keys == ref_keys,
+              f"[8] {name}: the card's timestamps differ from the CPU's")
+        check(len(common) == keep, f"[8] {name}: {len(common)} of {keep} "
+              f"frames matched by timestamp")
+        # the EDI timestamps: frame 4k's time, 96 ms a TF
+        want = [(int(t0) + (int(round((t0 % 1) * PPS_HZ))
+                            + 4 * i * FRAME_TICKS) // PPS_HZ,
+                 (int(round((t0 % 1) * PPS_HZ)) + 4 * i * FRAME_TICKS)
+                 % PPS_HZ) for i in range(n_tf)]
+        check([k for k, _ in got["order"]] == want,
+              f"[8] {name}: the transmitted timestamps are not the EDI "
+              f"stream's")
+        # the feedback client's burst
+        check("error" not in fb, f"[8] feedback client: {fb.get('error')}")
+        check(fb["n"] == FB_SAMPLES and fb["tx_key"] in got["heads"],
+              f"[8] feedback: {fb['n']} samples at {fb['tx_key']}, not a "
+              f"transmitted frame's timestamp")
+        tx_ref = got["heads"][fb["tx_key"]]
+        check(np.array_equal(fb["tx"], tx_ref)
+              and float(np.abs(tx_ref).max()) > 0,
+              "[8] feedback TX burst != the frame sent at its timestamp, "
+              "or silent")
+        gain = 10.0 ** ((FB_TXGAIN + FB_RXGAIN) / 20.0)
+        fb_err = float(np.abs(fb["rx"] - gain * fb["tx"]).max())
+        check(fb["rx_key"] == fb["tx_key"]
+              and fb_err <= 1e-6 * gain * float(np.abs(fb["tx"]).max()),
+              f"[8] feedback RX != gain*TX (err {fb_err})")
+        # the warm run, timed
+        wall_t, rt_t, _, counters_t = _run_live(
+            torch, _live_ini(d, name + "_timed", src, "edi", dpd,
+                             loop.format(port=free_port())),
+            "cuda", LIVE_BATCHES, 0)
+    finally:
+        edi.close()
+    fps = n_tf * 4 / wall_t
+    records[name] = {
+        "input": "edi/tcp", "output": "loopback", "format": "f32",
+        "output_rate": rt.settings.output_rate, "eti_frames": n_tf * 4,
+        "batches": LIVE_BATCHES, "batch_tf": BATCH_TF, "launches": counts,
+        "encode_s": enc_s, "cold_wall_s": wall, "wall_s": wall_t,
+        "frames_per_s": fps, "realtime_x": fps * ETI_FRAME_S,
+        "run_s": rt_t.run_s, "run_frames_per_s": n_tf * 4 / rt_t.run_s,
+        "share_of_run": {k: v / rt_t.run_s for k, v in
+                         rt_t.timings.items()},
+        "counters": counters_t, "cpu_frames_compared": len(common),
+        "max_err_over_tol": worst,
+        "feedback": {"samples": fb["n"], "tx_timestamp": fb["tx_key"],
+                     "gain": gain, "max_abs_err": fb_err}}
+    log(f"[8] {name}: {n_tf * 4} ETI frames as EDI/TCP (encoded in "
+        f"{enc_s:.2f} s), launches {counts}; {len(common)} TFs vs the CPU "
+        f"runtime matched by timestamp, max err {worst:.3f} of the "
+        f"tolerance, timestamps equal; feedback burst of {fb['n']} samples "
+        f"at {fb['tx_key']}: TX == the frame sent, RX == {gain:.4f} x TX "
+        f"(max err {fb_err:.2e}); warm run {wall_t:.3f} s = {fps:.1f} "
+        f"frames/s = {fps * ETI_FRAME_S:.2f}x real time (cold {wall:.3f} "
+        f"s); the run before close {rt_t.run_s:.3f} s = "
+        f"{n_tf * 4 / rt_t.run_s:.1f} frames/s = "
+        f"{n_tf * 4 / rt_t.run_s * ETI_FRAME_S:.2f}x real time; counters "
+        f"{counters_t}; share of the run "
+        f"{json.dumps(records[name]['share_of_run'])}")
+
+    # (e) ETI over TCP -> main path, s16 -> SdrOutput over a recording
+    # device (dexter's wire and scale; its driver replaced)
+    class RecordingDevice(sdr.SdrDevice):
+        def __init__(self, conf=None):
+            self.n = 0
+
+        def tune(self, lo_offset, frequency):
+            self.lo_offset, self.frequency = lo_offset, frequency
+
+        def transmit_frame(self, samples, ts):
+            self.n += 1
+
+    eti = TcpServer(frames.tobytes())
+    name = "e_tcp_s16_sdr"
+    src = f"tcp://127.0.0.1:{eti.port}"
+    driver = sdr.DexterDevice
+    sdr.DexterDevice = RecordingDevice
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        try:
+            torch.cuda.reset_peak_host_memory_stats()
+        except (AttributeError, RuntimeError):
+            pass            # a build without host memory statistics
+        pinned_before = _pinned_stats(torch)
+        ini = _live_ini(d, name, src, "tcp", "", "[dexteroutput]\n")
+        wall, rt, got, counters = _run_live(torch, ini, "cuda",
+                                            LIVE_BATCHES, keep)
+        counts = {k: f.launches for k, f in kernels.items()}
+        check(counts["ofdm_ifft"] > 0, f"[8] {name} never launched "
+              f"ofdm_ifft")
+        check(got["held_bytes"] <= 2 * BATCH_TF * 196_608 * 4,
+              f"[8] {name}: the SDR queue's frames held "
+              f"{got['held_bytes']} B of batch buffers, more than 2 "
+              f"batches")
+        del rt
+        pinned_after = _pinned_stats(torch)
+        _, _, ref, _ = _run_live(
+            torch, _live_ini(d, name + "_cpu", src, "tcp", "",
+                             "[dexteroutput]\n"), "cpu", LIVE_COMPARED,
+            keep)
+        common, worst = _compare_live(name, got, ref, "s16")
+        wall_t, rt_t, _, counters_t = _run_live(
+            torch, _live_ini(d, name + "_timed", src, "tcp", "",
+                             "[dexteroutput]\n"), "cuda", LIVE_BATCHES, 0)
+    finally:
+        sdr.DexterDevice = driver
+        eti.close()
+    batch_bytes = BATCH_TF * 196_608 * 4        # s16 wire words a batch
+    # what stays referenced after close is the last batch's statistics
+    # (rt.last_stats, a few bytes), not its I/Q
+    check(pinned_after["live_pinned_bytes"]
+          <= pinned_before["live_pinned_bytes"] + (1 << 20),
+          f"[8] {name}: pinned host memory still referenced after the "
+          f"run: {pinned_before} -> {pinned_after}")
+    fps = n_tf * 4 / wall_t
+    records[name] = {
+        "input": "eti/tcp", "output": "sdr (recording device)",
+        "format": "s16", "output_rate": 2_048_000, "eti_frames": n_tf * 4,
+        "batches": LIVE_BATCHES, "batch_tf": BATCH_TF, "launches": counts,
+        "cold_wall_s": wall, "wall_s": wall_t, "frames_per_s": fps,
+        "realtime_x": fps * ETI_FRAME_S,
+        "run_s": rt_t.run_s, "run_frames_per_s": n_tf * 4 / rt_t.run_s,
+        "share_of_run": {k: v / rt_t.run_s for k, v in
+                         rt_t.timings.items()},
+        "counters": counters, "counters_timed": counters_t,
+        "cpu_frames_compared": len(common), "max_int16_diff": worst,
+        "pinned_before": pinned_before, "pinned_after": pinned_after,
+        "sdr_queue_held_bytes": got["held_bytes"],
+        "pool_growth_bytes": (
+            pinned_after["allocated_bytes.current"]
+            - pinned_before["allocated_bytes.current"]
+            if "allocated_bytes.current" in pinned_before else None)}
+    log(f"[8] {name}: {n_tf * 4} ETI frames over TCP, launches {counts}; "
+        f"{len(common)} TFs vs the CPU runtime matched by FCT, max int16 "
+        f"diff {worst:.0f}; counters {counters} (timed run "
+        f"{counters_t}); pinned host memory {pinned_before} -> "
+        f"{pinned_after} (the allocator's pool grew "
+        f"{records[name]['pool_growth_bytes']} B; the SDR queue's frames "
+        f"held at most {got['held_bytes']} B of batch buffers, "
+        f"{got['held_bytes'] / batch_bytes:.2f} batches); warm run {wall_t:.3f} s = {fps:.1f} frames/s = "
+        f"{fps * ETI_FRAME_S:.2f}x real time (cold {wall:.3f} s); the run "
+        f"before close {rt_t.run_s:.3f} s = {n_tf * 4 / rt_t.run_s:.1f} "
+        f"frames/s = {n_tf * 4 / rt_t.run_s * ETI_FRAME_S:.2f}x real time; "
+        f"share of the run {json.dumps(records[name]['share_of_run'])}")
+    log(f"[8] live phase passed in {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA card")
     sys.path.insert(0, ROOT)
+    # tests/live_stream.py: phase 8's EDI stream, TCP sender and feedback
+    # client (it imports the port only)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
     try:
         import dabmod_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -1710,23 +2128,25 @@ def main():
         variant_launches = phase_variants(torch)
         phase_fixed_point(torch)
         runtime = phase_runtime(torch, steps)
+        live = phase_live(torch)
     finally:
         for d in _TMP:
             shutil.rmtree(d, ignore_errors=True)
-    # K1's launches in phase 6 and each kernel's in phase 7, beside those of
-    # the full-width paths of phase 4
+    # K1's launches in phase 6 and each kernel's in phases 7 and 8, beside
+    # those of the full-width paths of phase 4
     kernels[0]["variant_launches"] = variant_launches["ofdm_ifft"]
     for k in kernels:
         base = "resample_poly" if k["name"].startswith("resample_poly") \
             else k["name"]
         k["runtime_launches"] = {
-            ini: rec["launches"][base] for ini, rec in runtime.items()
+            ini: rec["launches"][base]
+            for ini, rec in (*runtime.items(), *live.items())
             if k.get("rate", 8_192_000) == rec["output_rate"]
             or base != "resample_poly"}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": card, "kernels": kernels,
-                      "eager_stages": stages, "runtime": runtime}),
-          flush=True)
+                      "eager_stages": stages, "runtime": runtime,
+                      "live": live}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

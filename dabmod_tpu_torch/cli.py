@@ -29,7 +29,7 @@ def _parse(argv) -> tuple[ModSettings, str | None]:
         prog="dabmod-tpu-torch",
         description="DAB modulator on PyTorch/CUDA (ODR-DabMod capabilities)")
     ap.add_argument("input", nargs="?", default=None,
-                    help="ETI input file (default /dev/stdin)")
+                    help="ETI input file / tcp:// URI (default /dev/stdin)")
     ap.add_argument("-C", dest="config", help="configuration file")
     ap.add_argument("-a", dest="digital_gain", type=float, default=None,
                     help="digital gain")
@@ -179,7 +179,8 @@ def main(argv=None):
 
     # graceful stop on SIGINT/SIGTERM like the reference's signal handler
     # (src/DabMod.cpp:87-97): the first signal asks for a clean stop after
-    # the current batch, a second one is fatal
+    # the current batch (a stream reader's wait is cut at its sub-second
+    # socket tick), a second one is fatal
     def _on_signal(signum, frame):
         log.info("signal %d received, stopping", signum)
         rt.stop()

@@ -11,8 +11,8 @@ definition), 0/9 (country/LTO/international table), 0/10 (date & time),
 (announcement support), 0/19 (announcement switching), and FIG 1/0, 1/1,
 1/4 labels with EBU Latin -> UTF-8 conversion.
 
-The port's copy of dabmod_tpu/io/fic_decoder.py, with its own copy of the
-FIB CRC (dabmod_tpu/io/edi.py:29-49), since the EDI input is not ported.
+The port's copy of dabmod_tpu/io/fic_decoder.py, with the CRC of
+dabmod_tpu/io/edi.py:29-49, which the port's io/edi.py imports from here.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
-"""Output sinks: the file sink (every sample format).  The port's copy of
-dabmod_tpu/io/outputs.py's serialize_iq_count, FileOutput and
-open_output (src/OutputFile.cpp); the ZeroMQ and SDR sinks are not ported
-yet (ROADMAP A10(b)).  Samples arrive as host arrays (the runtime's fetch
+"""Output sinks: file (every sample format), ZeroMQ PUB/REP, and the SDR
+sinks (io/sdr.py over the device drivers).  The port's copy of
+dabmod_tpu/io/outputs.py (src/OutputFile.cpp, src/OutputZeroMQ.cpp,
+src/DabMod.cpp:250-363).  Samples arrive as host arrays (the runtime's fetch
 thread copies them off the card) and are written as interleaved I/Q,
 little endian.
 """
@@ -15,6 +15,10 @@ import numpy as np
 log = logging.getLogger("dabmod_tpu_torch")
 
 F32_FORMATS = ("complexf", "complexf_normalised", "f32", "")
+
+
+def serialize_iq(iq: np.ndarray, fmt: str) -> bytes:
+    return serialize_iq_count(iq, fmt)[0]
 
 
 def serialize_iq_count(iq: np.ndarray, fmt: str) -> tuple[bytes, int]:
@@ -105,15 +109,77 @@ class FileOutput:
         self.f.close()
 
 
+class ZmqOutput:
+    """ZMQ PUB or REP sink of raw I/Q (ref: src/OutputZeroMQ.cpp:35-80)."""
+
+    def __init__(self, endpoint: str, socket_type: str = "pub",
+                 fmt: str = "complexf"):
+        import zmq
+        self.fmt = fmt
+        self.ctx = zmq.Context.instance()
+        kind = {"pub": zmq.PUB, "rep": zmq.REP}[socket_type]
+        self.socket_type = socket_type
+        self.sock = self.ctx.socket(kind)
+        self.sock.bind(endpoint)
+
+    def write(self, iq, metadata=None) -> None:
+        """One message a batch; `metadata` (the runtime's per-TF (fct,
+        timestamp) list) is not sent, as dabmod_tpu sends none."""
+        data = serialize_iq(iq, self.fmt)
+        if self.socket_type == "rep":
+            # wait for a request before each send, like the reference
+            self.sock.recv()
+        self.sock.send(data, copy=False)
+
+    def close(self):
+        self.sock.close()
+
+
 def open_output(settings):
-    """The file sink for settings.output == "file".  The ZeroMQ and SDR
-    sinks raise NotImplementedError: they come with ROADMAP A10(b)."""
+    """The sink for settings.output (as dabmod_tpu's open_output)."""
     if settings.output == "file":
         return FileOutput(settings.output_name, settings.file_output_format,
                           settings.file_output_show_metadata)
-    if settings.output in ("zmq", "uhd", "soapy", "lime", "bladerf",
-                           "dexter", "loopback"):
-        raise NotImplementedError(
-            f"output {settings.output!r} is not ported to dabmod_tpu_torch "
-            f"yet (ROADMAP A10(b))")
+    if settings.output == "zmq":
+        return ZmqOutput(settings.output_name,
+                         settings.zmq_output_socket_type,
+                         settings.zmq_output_format)
+    if settings.output in ("uhd", "soapy", "lime", "bladerf", "dexter",
+                           "loopback"):
+        return open_sdr_output(settings)
     raise ValueError(f"unsupported output {settings.output!r}")
+
+
+def open_sdr_output(settings):
+    """Construct the async SDR sink over the configured device driver
+    (ref: src/DabMod.cpp:250-363 prepare_output SDR branches).  The
+    hardware drivers raise when their vendor library is absent; the
+    `loopback` device closes the DPD feedback loop without hardware."""
+    from . import sdr
+
+    if settings.output == "uhd":
+        from .uhd_driver import UhdConfig  # noqa: PLC0415
+        device = sdr.UhdDevice(UhdConfig.from_settings(settings))
+    elif settings.output == "soapy":
+        from .soapy_driver import SoapyConfig  # noqa: PLC0415
+        device = sdr.SoapyDevice(SoapyConfig.from_settings(settings))
+    elif settings.output == "lime":
+        from .lime_driver import LimeConfig  # noqa: PLC0415
+        device = sdr.LimeDevice(LimeConfig.from_settings(settings))
+    elif settings.output == "bladerf":
+        from .bladerf_driver import BladeRFConfig  # noqa: PLC0415
+        device = sdr.BladeRFDevice(BladeRFConfig.from_settings(settings))
+    elif settings.output == "dexter":
+        from .dexter_driver import DexterConfig  # noqa: PLC0415
+        device = sdr.DexterDevice(DexterConfig.from_settings(settings))
+    else:
+        device = sdr.LoopbackSdrDevice()
+        device.set_txgain(settings.sdr_txgain)
+        device.set_rxgain(settings.sdr_rxgain)
+        if settings.sdr_frequency:
+            device.tune(settings.sdr_lo_offset, settings.sdr_frequency)
+    return sdr.SdrOutput(device, sync=settings.tist_enabled,
+                         sample_rate=settings.output_rate,
+                         feedback_port=settings.sdr_dpd_port,
+                         mute=False,
+                         mute_no_timestamps=settings.sdr_mute_no_timestamps)

@@ -1,7 +1,7 @@
-"""ETI input: the file/stdin/FIFO reader (Raw / Framed / Streamed framing
-auto-detection), streaming and batch-oriented.  The port's copy of
-dabmod_tpu/io/readers.py's EtiFileReader and open_input; the TCP, ZMQ and
-EDI inputs are not ported yet (ROADMAP A10(b)).
+"""ETI input readers: file/stdin (Raw / Framed / Streamed framing
+auto-detection) and TCP, streaming and batch-oriented; open_input also
+opens the EDI input (io/edi.py).  The port's copy of
+dabmod_tpu/io/readers.py.
 
 Framing detection mirrors the reference's InputFileReader::IdentifyType
 (src/InputFileReader.cpp:66-187): Raw = bare 6144-byte frames found by the
@@ -18,7 +18,9 @@ from __future__ import annotations
 
 import io
 import logging
+import socket
 import sys
+import time
 
 import numpy as np
 
@@ -190,14 +192,149 @@ class EtiFileReader:
             self.f.close()
 
 
+class EtiTcpReader:
+    """ETI over TCP (ref: src/InputTcpReader.cpp:44-93): a stream of raw
+    6144-byte frames that survives multiplexer restarts.
+
+    Mirrors the reference's auto-reconnecting TCPClient semantics
+    (lib/Socket.cpp:954-999): a peer close triggers a reconnect with a 1 s
+    backoff (src/InputTcpReader.cpp:77-80), a receive timeout yields an
+    empty batch which the caller must treat as "keep waiting" rather than
+    EOF (src/DabMod.cpp:613-627), and a half-closed connection -- no bytes
+    for 5x the timeout -- forces a reconnect (lib/Socket.cpp:978-985).
+    `never_eof` advertises the stream-liveness contract to the runtime.
+    """
+
+    never_eof = True
+
+    def __init__(self, uri: str, timeout: float = 8.0,
+                 reconnect_delay: float = 1.0):
+        if uri.startswith("tcp://"):
+            uri = uri[len("tcp://"):]
+        host, port = uri.rsplit(":", 1)
+        self.host, self.port = host, int(port)
+        self.timeout = timeout
+        # sub-second socket timeout: read_batch polls the stop flag and the
+        # logical deadline at this cadence, so an external stop() takes
+        # effect within ~0.5 s even mid-recv (the logical receive timeout
+        # the caller observes is still `timeout`)
+        self._sock_timeout = min(0.5, timeout)
+        self.reconnect_delay = reconnect_delay
+        self.sock: socket.socket | None = None
+        self._buf = b""
+        self._last_rx: float | None = None
+        self._closed = False
+        self._stopping = False
+        self._outage = False
+        self.reconnects = 0
+        self._connect()
+
+    def _connect(self) -> None:
+        if self.sock is not None:
+            try:
+                self.sock.close()
+            except OSError:
+                pass
+            self.sock = None
+        # a reconnected peer restarts at a frame boundary; drop any partial
+        # tail so framing stays aligned (the reference's per-frame
+        # MSG_WAITALL read discards partials the same way)
+        self._buf = self._buf[:len(self._buf) // ETI_NI_FRAME
+                              * ETI_NI_FRAME]
+        try:
+            self.sock = socket.create_connection(
+                (self.host, self.port), timeout=self.timeout)
+            self.sock.settimeout(self._sock_timeout)
+            # arm the stream-gap clock at connect time: a peer that
+            # accepts the connection but never sends must be reconnected
+            # after 5x timeout like any other half-closed stream (the
+            # reference counts from connect, lib/Socket.cpp:978-985)
+            self._last_rx = time.monotonic()
+        except OSError as e:
+            log.debug("TCP input connect to %s:%d failed: %s",
+                      self.host, self.port, e)
+            self.sock = None
+
+    def _reconnect(self, why: str) -> None:
+        # first attempt of an outage at INFO, the retry storm at DEBUG
+        # (the reference logs every attempt at debug,
+        # src/InputTcpReader.cpp:77-78)
+        level = logging.DEBUG if self._outage else logging.INFO
+        log.log(level, "TCP input auto reconnect (%s)", why)
+        self._outage = True
+        self.reconnects += 1
+        if self._closed or self._stopping:
+            return
+        time.sleep(self.reconnect_delay)
+        if not (self._closed or self._stopping):
+            self._connect()
+
+    def request_stop(self):
+        """Make an in-progress or future read_batch return within one
+        sub-second socket-timeout tick (called from another thread)."""
+        self._stopping = True
+
+    def read_batch(self, n: int) -> np.ndarray:
+        """Up to n frames; an empty batch means a timeout or a reconnect in
+        progress, never end-of-stream."""
+        if (n > 0 and self.sock is None
+                and not (self._closed or self._stopping)):
+            self._reconnect("not connected")
+        want = n * ETI_NI_FRAME
+        deadline = time.monotonic() + self.timeout
+        try:
+            while (len(self._buf) < want and self.sock is not None
+                   and not self._stopping):
+                try:
+                    chunk = self.sock.recv(65536)
+                except socket.timeout:
+                    # sub-second tick: check stop, the stream-gap clock
+                    # and the logical timeout, then keep waiting
+                    now = time.monotonic()
+                    if now - self._last_rx > 5 * self.timeout:
+                        # half-closed connection (lib/Socket.cpp:978-985)
+                        self._reconnect("stream gap")
+                        break
+                    if now >= deadline:
+                        log.debug("TCP input timeout")
+                        break
+                    continue
+                if not chunk:
+                    self._reconnect("peer closed")
+                    break
+                self._buf += chunk
+                self._last_rx = time.monotonic()
+                if self._outage:
+                    log.info("TCP input reconnected, stream resumed")
+                    self._outage = False
+        except OSError as e:
+            self._reconnect(f"socket error: {e}")
+        T = min(len(self._buf) // ETI_NI_FRAME, n)
+        if T == 0:
+            return np.empty((0, ETI_NI_FRAME), np.uint8)
+        out = np.frombuffer(self._buf[:T * ETI_NI_FRAME],
+                            np.uint8).reshape(T, ETI_NI_FRAME).copy()
+        self._buf = self._buf[T * ETI_NI_FRAME:]
+        return out
+
+    def close(self):
+        self._closed = True
+        self._stopping = True
+        if self.sock is not None:
+            self.sock.close()
+            self.sock = None
+
+
 def open_input(settings):
-    """The ETI file reader for settings.input_name (a file, a FIFO or
-    /dev/stdin).  The TCP, ZMQ and EDI transports raise
-    NotImplementedError: they come with ROADMAP A10(b)."""
+    """EDI (transport=edi or a udp:// source), ETI over TCP (transport=tcp
+    or a tcp:// source), or else the file reader, as dabmod_tpu opens them
+    (transport=zmq included: dabmod_tpu reads its source as a file)."""
     name = settings.input_name
-    if (settings.input_transport in ("tcp", "zmq", "edi")
-            or name.startswith(("tcp://", "udp://", "zmq+tcp://"))):
-        raise NotImplementedError(
-            f"input transport {settings.input_transport!r} ({name}) is not "
-            f"ported to dabmod_tpu_torch yet (ROADMAP A10(b))")
+    if settings.input_transport == "edi" or name.startswith("udp://"):
+        from .edi import EdiInput
+        return EdiInput(name)
+    if settings.input_transport == "tcp" or name.startswith("tcp://"):
+        return EtiTcpReader(
+            name, timeout=getattr(settings, "tcp_timeout", 8.0),
+            reconnect_delay=getattr(settings, "tcp_reconnect_delay", 1.0))
     return EtiFileReader(name, loop=settings.loop)

@@ -46,6 +46,7 @@ from .eti import EnsembleReconfigured, EtiError, parse_eti_frames
 from .io.fic_decoder import FICDecoder
 from .io.outputs import F32_FORMATS, open_output
 from .io.readers import open_input
+from .io.sdr import SdrOutput
 from .models import (Modulator, get_modulator, load_dpd_file, load_fir_taps,
                      resolve_device)
 from .rc import ParameterError, RemoteControllable, rcs
@@ -74,11 +75,15 @@ class ModRuntime:
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         self.settings = settings
-        # f32 file sinks take the planes contract: the device skips the
+        # f32 sinks take the planes contract: the device skips the
         # interleave and the fetch thread assembles the pairs
-        # (ModSettings.device_interleave)
-        if (settings.output == "file"
-                and settings.file_output_format in F32_FORMATS):
+        # (ModSettings.device_interleave; dabmod_tpu/runtime.py:61-69)
+        f32_file = (settings.output == "file"
+                    and settings.file_output_format in F32_FORMATS)
+        f32_zmq = (settings.output == "zmq"
+                   and settings.zmq_output_format not in ("s16", "u8", "s8"))
+        f32_sdr = settings.output in ("uhd", "soapy", "lime", "loopback")
+        if f32_file or f32_zmq or f32_sdr:
             settings.device_interleave = False
         self.reader = open_input(settings)
         try:
@@ -98,6 +103,10 @@ class ModRuntime:
         self.num_restarts = 0
         self.framecount = 0
         self._pending = np.empty((0, 6144), np.uint8)
+        # EDI timestamps ride in lockstep with _pending: one [seconds,
+        # utco, tsta] row per pending frame, trimmed by exactly the same
+        # slices (FP-0 alignment and the requeues drop or return frames)
+        self._pending_times: np.ndarray | None = None
         self._last_fct = -1
         self._aligned = False
         self._rebuild = False
@@ -108,14 +117,16 @@ class ModRuntime:
         self._frames_since_clip_poll = RC_FAULT_POLL_FRAMES
         self._frames_since_stats_poll = RC_FAULT_POLL_FRAMES
         # seconds spent in each part of the pipeline, summed over the run:
-        # on the main thread, staging the ETI bytes in and launching their
+        # on the main thread, the reader (a file read, or a socket's wait
+        # and the EDI decode), staging the ETI bytes in and launching their
         # copy, modulate's host time, taking pinned buffers for the output
         # and launching the copy out; on the fetch thread, the wait for the
         # card and the host work after it (the planes' interleave, the
-        # dexter chain); on the writer thread, the sink writes
+        # dexter chain); on the writer thread, the sink writes (an SDR
+        # sink's write only queues the frames for its device thread)
         self.timings = dict.fromkeys(
-            ("stage_in_s", "modulate_s", "pin_alloc_s", "copy_out_s",
-             "fetch_wait_s", "fetch_s", "write_s"), 0.0)
+            ("read_s", "stage_in_s", "modulate_s", "pin_alloc_s",
+             "copy_out_s", "fetch_wait_s", "fetch_s", "write_s"), 0.0)
         # dispatch -> [fetch thread: wait for the card, host arrays] ->
         # [writer thread: output.write]; depth 4 keeps enough batches in
         # flight to overlap the fetch of one with the write of another
@@ -277,6 +288,9 @@ class ModRuntime:
                                lambda: s.poly_coef_file, set_coeffile)
             rcs.enrol(poly)
 
+        if isinstance(self.output, SdrOutput):
+            self._enrol_sdr_rc(self.output)
+
         mod = RemoteControllable("modulator")
         mod.add_parameter("rate", "(Read-only) IQ output samplerate",
                           lambda: s.output_rate)
@@ -310,6 +324,44 @@ class ModRuntime:
                            + " " + str(self.ts_decoder.timestamp()
                                        .as_seconds()))
         rcs.enrol(tist)
+
+    def _enrol_sdr_rc(self, out: SdrOutput):
+        """The `sdr` RC module of an SDR sink (dabmod_tpu/runtime.py:
+        266-305): gains, frequency, muting, the frame counters, and the
+        GPSDO and hardware-clock parameters where the device has them
+        (ref: src/output/UHD.cpp:377-393)."""
+        dev = out.device
+        sdr_rc = RemoteControllable("sdr")
+        sdr_rc.add_parameter("txgain", "TX gain", dev.get_txgain,
+                             lambda v: dev.set_txgain(float(v)))
+        sdr_rc.add_parameter("rxgain", "RX gain for the DPD feedback",
+                             dev.get_rxgain,
+                             lambda v: dev.set_rxgain(float(v)))
+        sdr_rc.add_parameter("freq", "Transmission frequency",
+                             lambda: dev.frequency,
+                             lambda v: dev.tune(dev.lo_offset, float(v)))
+        sdr_rc.add_parameter("muting", "Mute the TX carrier",
+                             lambda: int(out.muting),
+                             lambda v: setattr(out, "muting", bool(int(v))))
+        for stat in ("underruns", "dropped", "queue_overflows", "frames"):
+            sdr_rc.add_parameter(stat, f"(Read-only) {stat} counter",
+                                 lambda st=stat: getattr(out, st))
+        dtime = getattr(dev, "device_time", None)
+        if dtime is not None:
+            sdr_rc.add_parameter("gpsdo_num_sv",
+                                 "(Read-only) GPS satellites used",
+                                 lambda: dtime.num_sv)
+            sdr_rc.add_parameter("gpsdo_holdover",
+                                 "(Read-only) GPSDO in holdover [0-1]",
+                                 lambda: int(dtime.holdover))
+            sdr_rc.add_parameter("gps_state",
+                                 "(Read-only) GPSDO state machine state",
+                                 lambda: dtime.gps_state)
+        if hasattr(dev, "get_real_secs"):
+            sdr_rc.add_parameter("device_time",
+                                 "(Read-only) hardware clock seconds",
+                                 lambda: dev.get_real_secs())
+        rcs.enrol(sdr_rc)
 
     # ------------------------------------------------------------------
     # Moving the ETI bytes in and the output out
@@ -515,9 +567,15 @@ class ModRuntime:
             self._rebuild = False
 
     def stop(self):
-        """Ask the run loop to end after the current batch (the reference's
-        SIGINT handler plays this role, src/DabMod.cpp:87-97)."""
+        """Ask the run loop to end after the current batch (live-stream
+        inputs never reach EOF, so an external stop is the only clean way
+        to end them -- the reference's SIGINT handler plays this role,
+        src/DabMod.cpp:87-97).  Stream readers are interrupted mid-receive,
+        so the latency is bounded by their sub-second socket tick."""
         self._stop.set()
+        req = getattr(self.reader, "request_stop", None)
+        if req is not None:
+            req()
 
     def _poll_dynamic_offset(self):
         """Re-read the delaymanagement dynamic offset file when it changes
@@ -542,19 +600,43 @@ class ModRuntime:
             log.info("delaymanagement: dynamic offset now %f s", offset)
             self.ts_decoder.offset_s = offset
 
+    def _read(self, n: int) -> np.ndarray:
+        """Up to n frames from the reader onto _pending, with their EDI
+        timestamps (if the reader has any) onto _pending_times."""
+        t0 = time.perf_counter()
+        got = self.reader.read_batch(n)
+        self.timings["read_s"] += time.perf_counter() - t0
+        if got.size:
+            self._pending = np.concatenate([self._pending, got])
+            self._take_reader_times(len(got))
+        return got
+
+    def _take_reader_times(self, n: int):
+        """Move n just-read per-frame timestamps from the reader into the
+        _pending-aligned buffer (no-op for non-EDI readers)."""
+        ts = getattr(self.reader, "timestamps", None)
+        if ts is None or n == 0:
+            return
+        take, del_n = ts[:n], min(n, len(ts))
+        del ts[:del_n]
+        arr = np.asarray(take, np.float64).reshape(len(take), 3)
+        if self._pending_times is None:
+            self._pending_times = np.empty((0, 3), np.float64)
+        self._pending_times = np.concatenate([self._pending_times, arr])
+
     def _drop_until_fp0(self):
         """Do not start the pipeline before frame phase 0, so all blocks are
         properly aligned (ref: src/DabMod.cpp:683-692).  Operates on raw
-        pending frames via the FC header byte."""
+        pending frames via the FC header byte, and on their timestamps."""
         if self._aligned or self._pending.shape[0] == 0:
             return
         fp = (self._pending[:, 6] >> 5) & 0x7
         zeros = np.nonzero(fp == 0)[0]
-        if zeros.size == 0:
-            self._pending = self._pending[:0]
-            return
-        self._pending = self._pending[int(zeros[0]):]
-        self._aligned = True
+        k = int(zeros[0]) if zeros.size else self._pending.shape[0]
+        self._pending = self._pending[k:]
+        if self._pending_times is not None:
+            self._pending_times = self._pending_times[k:]
+        self._aligned = zeros.size > 0
 
     def _check_continuity(self, batch):
         """FCT continuity over the batch (ref: src/DabMod.cpp:694-707)."""
@@ -582,6 +664,11 @@ class ModRuntime:
 
     def _run_batches_inner(self, max_batches: int | None = None) -> RunResult:
         s = self.settings
+        # a live stream (TCP, EDI) signals a timeout with an empty read;
+        # only a file-like reader reaches the end of its stream (ref:
+        # src/DabMod.cpp:613-627 ignores empty TCP frames and ends on
+        # InputFileReader EOF only)
+        stream = getattr(self.reader, "never_eof", False)
         batches_done = 0
         while max_batches is None or batches_done < max_batches:
             if self._stop.is_set():
@@ -589,12 +676,10 @@ class ModRuntime:
             self._poll_dynamic_offset()
             # peek at layout with one frame if we have none pending
             need_probe = self._pending.shape[0] == 0
-            probe = self.reader.read_batch(4 if need_probe else 0)
-            if probe.size:
-                self._pending = np.concatenate([self._pending, probe])
+            probe = self._read(4 if need_probe else 0)
             self._drop_until_fp0()
             if self._pending.shape[0] == 0:
-                if probe.size == 0:
+                if probe.size == 0 and not stream:
                     return RunResult.NORMAL_END
                 continue
             try:
@@ -607,24 +692,56 @@ class ModRuntime:
             C = self.modulator.p.cif_count
             need = s.batch_tf * C
 
+            # a stream's timeout ends the read early: a partial batch of
+            # any whole number of transmission frames goes out
             while self._pending.shape[0] < need:
-                more = self.reader.read_batch(need - self._pending.shape[0])
-                if more.size == 0:
+                if self._read(need - self._pending.shape[0]).size == 0:
                     break
-                self._pending = np.concatenate([self._pending, more])
 
             T = (self._pending.shape[0] // C) * C
             if T == 0:
+                if stream:
+                    continue        # timeout: keep the transmitter alive
                 return RunResult.NORMAL_END
             raw, self._pending = self._pending[:T], self._pending[T:]
+            times_batch = None
+            if self._pending_times is not None:
+                times_batch = self._pending_times[:T]
+                self._pending_times = self._pending_times[T:]
+
+            def _requeue(from_idx):
+                self._pending = np.concatenate([raw[from_idx:],
+                                                self._pending])
+                if times_batch is not None:
+                    self._pending_times = np.concatenate(
+                        [times_batch[from_idx:], self._pending_times])
 
             try:
                 batch = parse_eti_frames(raw)
             except EnsembleReconfigured:
-                # replay frame-by-frame on next run with a fresh pipeline
-                self._pending = np.concatenate([raw, self._pending])
-                self.modulator = None
-                return RunResult.RECONFIGURE
+                # the layout changes inside the batch: modulate the whole
+                # TFs before the change, then restart at the change with a
+                # new modulator.  (dabmod_tpu requeues the whole batch, takes
+                # the same mixed batch again, and its restart loop gives up.)
+                k = _layout_run(raw)
+                keep = (k // C) * C
+                if keep == 0:
+                    # less than a TF of the old layout is left: drop it and
+                    # realign the new layout to FP 0, as the reference's
+                    # restart does (src/DabMod.cpp:683-692, 726-731)
+                    log.warning("ensemble reconfigured; dropping %d ETI "
+                                "frames of the old layout", k)
+                    _requeue(k)
+                    self._aligned = False
+                    self._last_fct = -1
+                    self.modulator = None
+                    return RunResult.RECONFIGURE
+                _requeue(keep)
+                raw = raw[:keep]
+                if times_batch is not None:
+                    times_batch = times_batch[:keep]
+                T = keep
+                batch = parse_eti_frames(raw)
 
             try:
                 self._check_continuity(batch)
@@ -633,17 +750,20 @@ class ModRuntime:
                 # requeue the frames from the discontinuity on; the restart
                 # realigns to FP 0 there (the reference restarts its whole
                 # flowgraph at this point, src/DabMod.cpp:694-707)
-                self._pending = np.concatenate(
-                    [raw[e.args[1]:], self._pending])
+                _requeue(e.args[1])
                 self._aligned = False
                 self._last_fct = -1
                 return RunResult.AGAIN
 
             # one timestamp per *transmission frame* (its earliest ETI
-            # frame's), from the MNSC decode
-            # (ref: src/output/SDR.cpp:135-201)
-            tf_ts = self.ts_decoder.update_eti_batch(
-                batch.fp, batch.mnsc, batch.tist_pps, batch.fct, C)
+            # frame's), so SFN gating can act per TF downstream (ref:
+            # src/output/SDR.cpp:135-201): EDI carries UTC, ETI needs the
+            # MNSC decode
+            if times_batch is not None and len(times_batch):
+                tf_ts = self._edi_timestamps(batch, times_batch, C)
+            else:
+                tf_ts = self.ts_decoder.update_eti_batch(
+                    batch.fp, batch.mnsc, batch.tist_pps, batch.fct, C)
 
             # feed the FIC decoder for ensemble info (RC `ensemble info`)
             self.fic_decoder.process(batch.fic[0].tobytes())
@@ -692,6 +812,22 @@ class ModRuntime:
                 return RunResult.FAILURE
         return RunResult.NORMAL_END
 
+    def _edi_timestamps(self, batch, times, C):
+        """Feed each frame's EDI time to the timestamp decoder; one
+        timestamp a transmission frame, its first ETI frame's."""
+        tf_ts = []
+        for i in range(len(batch)):
+            if i < len(times):
+                seconds, utco, _tsta = times[i]
+                # the EDI epoch is 2000-01-01 plus the UTCO leap-second
+                # offset (ref: src/EtiReader.cpp:476-529)
+                posix = int(seconds) + 946_684_800 + 32 - int(utco)
+                self.ts_decoder.update_edi(posix, batch.tist_pps[i],
+                                           batch.fct[i], batch.fp[i])
+            if i % C == 0:
+                tf_ts.append(self.ts_decoder.timestamp())
+        return tf_ts
+
     def _tracepoint(self, msg: str):
         if self._trace is not None:
             self._trace.write("%d,%s\n" % (time.monotonic_ns() // 1000, msg))
@@ -739,6 +875,17 @@ class ModRuntime:
                 return 1
             log.info("restarting modulator (%s, restart #%d)",
                      result.name, self.num_restarts)
+
+
+def _layout_run(raw: np.ndarray) -> int:
+    """How many frames at the head of raw [T, 6144] have the first frame's
+    ensemble layout: its NST, MID and sub-channel table (what
+    parse_eti_frames holds constant over a batch)."""
+    nst = int(raw[0, 5]) & 0x7F
+    sig = np.concatenate([raw[:, 5:6] & 0x7F, (raw[:, 6:7] >> 3) & 0x3,
+                          raw[:, 8:8 + 4 * nst]], axis=1)
+    same = np.all(sig == sig[0], axis=1)
+    return len(raw) if same.all() else int(np.argmin(same))
 
 
 class FctDiscontinuity(EtiError):

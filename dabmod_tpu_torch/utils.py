@@ -1,8 +1,9 @@
-"""Utility helpers: DAB Band III channel table and frame durations (port
-of src/Utils.cpp; the port's copy of dabmod_tpu/utils/__init__.py, less
-its real-time scheduling helper, which the SDR sinks of ROADMAP A10(b)
-use)."""
+"""Utility helpers: DAB Band III channel table, frame durations, realtime
+scheduling (port of src/Utils.cpp; the port's copy of
+dabmod_tpu/utils/__init__.py)."""
 from __future__ import annotations
+
+import os
 
 # DAB Band III channel centre frequencies in Hz (src/Utils.cpp:260-306)
 CHANNELS = {
@@ -37,3 +38,12 @@ def convert_frequency_to_channel(frequency: float) -> str | None:
 def transmission_frame_duration_ms(dabmode: int) -> int:
     """(src/Utils.cpp:355-365)"""
     return {1: 96, 2: 24, 3: 24, 4: 48}[dabmode]
+
+
+def set_realtime_prio(prio: int = 1) -> bool:
+    """Best-effort SCHED_RR like the reference (src/Utils.cpp:243)."""
+    try:
+        os.sched_setscheduler(0, os.SCHED_RR, os.sched_param(prio))
+        return True
+    except (PermissionError, OSError):
+        return False

@@ -751,3 +751,111 @@ def test_runtime_uploads_through_pinned_memory(card, tmp_path):
     torch.cuda.synchronize()
     assert down.is_pinned() and torch.equal(down, up.cpu())
     rt.close()
+
+
+# ---------------------------------------------------------------------------
+# the live inputs and the SDR sinks on the card (ROADMAP A10(b))
+# ---------------------------------------------------------------------------
+
+def _live_runtime(device, **kw):
+    from dabmod_tpu_torch.runtime import ModRuntime
+    s = ModSettings(batch_tf=2, **kw).normalise_for_output()
+    return ModRuntime(s, device=device)
+
+
+def _by_key(sent):
+    """live_stream.record_transmit's frames by timestamp (EDI) or FCT (ETI
+    without one)."""
+    return {(ts[1], ts[2]) if ts[0] else fct: a for fct, ts, a in sent}
+
+
+@pytest.mark.cuda
+def test_edi_tcp_into_loopback_on_card_equals_cpu(card):
+    """EDI over TCP, a stream that starts off frame phase 0 and ends on a
+    partial batch (a timeout dispatches it), into the loopback SDR with
+    timestamps on: the card transmits the frames the CPU transmits, under
+    the same timestamps, f32 within 3e-5*max|ref|."""
+    import time
+    from live_stream import TcpServer, edi_stream, record_transmit
+    frames = synth_eti_batch(40, mode=1, subch_specs=BENCH_SPECS, seed=41)
+    srv = TcpServer(b"".join(edi_stream(frames[3:36], time.time() + 30)))
+    got = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            rt = _live_runtime(dev, input_transport="edi",
+                               input_name=f"tcp://127.0.0.1:{srv.port}",
+                               output="loopback", tist_enabled=True)
+            sent = record_transmit(rt.output.device)
+            assert rt.run(4) == 0           # 3 full batches, 1 partial
+            rt.close()
+            got[dev] = _by_key(sent)
+            assert rt.framecount == 28 and rt.output.frames == 7
+    finally:
+        srv.close()
+    assert list(got["cuda"]) == list(got["cpu"])
+    for k, r in got["cpu"].items():
+        np.testing.assert_allclose(got["cuda"][k], r,
+                                   atol=3e-5 * np.abs(r).max())
+
+
+@pytest.mark.cuda
+def test_tcp_eti_into_s16_sdr_on_card_equals_cpu(card, monkeypatch):
+    """ETI over TCP into an s16 SdrOutput (output=dexter's wire, its
+    driver replaced by a recording device): the card's wire words equal
+    the CPU's within 1 LSB, matched by FCT; the pinned batch buffers the
+    sink's queued frames view are released after close."""
+    import gc
+    from live_stream import TcpServer, record_transmit
+    from dabmod_tpu_torch.io import sdr
+
+    class Recording(sdr.SdrDevice):
+        def __init__(self, conf=None):
+            pass
+
+        def tune(self, lo_offset, frequency):
+            pass
+
+        def transmit_frame(self, samples, ts):
+            pass
+
+    monkeypatch.setattr(sdr, "DexterDevice", Recording)
+    frames = synth_eti_batch(16, mode=1, subch_specs=BENCH_SPECS, seed=42)
+    srv = TcpServer(frames.tobytes())
+    got = {}
+    def pinned_in_use():
+        """Bytes of the pinned tensors Python still references."""
+        gc.collect()
+        live = {}
+        for o in gc.get_objects():
+            if (isinstance(o, torch.Tensor) and o.device.type == "cpu"
+                    and o.is_pinned()):
+                live[o.untyped_storage().data_ptr()] = \
+                    o.untyped_storage().nbytes()
+        return sum(live.values())
+
+    try:
+        before = pinned_in_use()
+        for dev in ("cuda", "cpu"):
+            rt = _live_runtime(dev, input_transport="tcp",
+                               input_name=f"tcp://127.0.0.1:{srv.port}",
+                               output="dexter", tcp_timeout=0.5)
+            sent = record_transmit(rt.output.device)
+            assert rt.run(2) == 0
+            rt.close()
+            got[dev] = _by_key(sent)
+            out = rt.output
+            assert (out.frames + out.queue_overflows + out.dropped
+                    + out.muted) == 4
+            if dev == "cuda":
+                del rt, out
+                after = pinned_in_use()
+                assert after <= before + (1 << 20), (before, after)
+    finally:
+        srv.close()
+    common = set(got["cuda"]) & set(got["cpu"])
+    assert common
+    for k in common:
+        g, r = got["cuda"][k], got["cpu"][k]
+        assert g.dtype == r.dtype == np.int32
+        d = np.abs(g.view(np.int16).astype(np.int32) - r.view(np.int16))
+        assert d.max() <= 1

@@ -372,27 +372,167 @@ def test_default_device_is_cuda():
     assert Modulator(layout, device="cpu").device.type == "cpu"
 
 
-# what the port does not run yet: the inputs and outputs of ROADMAP
-# A10(b), which the runtime refuses when it opens them
+# the inputs and outputs of ROADMAP A10(b), which raised NotImplementedError
+# until they were ported: each now runs, and matches dabmod_tpu
 A10B_SETTINGS = [
-    {"input_transport": "tcp", "input_name": "tcp://127.0.0.1:9200"},
-    {"input_transport": "zmq", "input_name": "zmq+tcp://127.0.0.1:9100"},
-    {"input_transport": "edi", "input_name": "udp://:12000"},
-    {"input_name": "tcp://127.0.0.1:9200"},
+    {"input_transport": "tcp", "input_name": "{tcp}"},
+    {"input_transport": "zmq", "input_name": "{eti}"},     # read as a file
+    {"input_transport": "edi", "input_name": "udp://127.0.0.1:0"},
+    {"input_name": "tcp://{tcp}"},
     *({"output": out} for out in ("zmq", "uhd", "soapy", "lime", "bladerf",
                                   "dexter", "loopback")),
 ]
+A10B_IDS = ["tcp", "zmq_input", "edi_udp", "tcp_uri", "zmq", "uhd", "soapy",
+            "lime", "bladerf", "dexter", "loopback"]
 
 
-@pytest.mark.parametrize("kw", A10B_SETTINGS)
-def test_unsupported_settings_raise(kw, tmp_path):
-    from dabmod_tpu_torch.runtime import ModRuntime
+def _a10b_packages():
+    from dabmod_tpu import runtime as j_runtime
+    from dabmod_tpu.io import (bladerf_driver, dexter_driver, lime_driver,
+                               sdr, soapy_driver, uhd_driver)
+    from dabmod_tpu.rc import rcs as j_rcs
+    from dabmod_tpu_torch import runtime as t_runtime
+    from dabmod_tpu_torch.io import bladerf_driver as t_bladerf
+    from dabmod_tpu_torch.io import dexter_driver as t_dexter
+    from dabmod_tpu_torch.io import lime_driver as t_lime
+    from dabmod_tpu_torch.io import sdr as t_sdr
+    from dabmod_tpu_torch.io import soapy_driver as t_soapy
+    from dabmod_tpu_torch.io import uhd_driver as t_uhd
+    from dabmod_tpu_torch.rc import rcs as t_rcs
+    j = dict(Settings=JSettings, runtime=lambda s: j_runtime.ModRuntime(s),
+             rcs=j_rcs, sdr=sdr, uhd=uhd_driver, soapy=soapy_driver,
+             lime=lime_driver, bladerf=bladerf_driver, dexter=dexter_driver)
+    t = dict(Settings=ModSettings,
+             runtime=lambda s: t_runtime.ModRuntime(s, device="cpu"),
+             rcs=t_rcs, sdr=t_sdr, uhd=t_uhd, soapy=t_soapy, lime=t_lime,
+             bladerf=t_bladerf, dexter=t_dexter)
+    return {"jax": j, "torch": t}
+
+
+def _fake_vendor(pkg, output, monkeypatch):
+    """The vendor module of an SDR output faked (the drivers' own tests'
+    fakes), and the package's driver class loaded over it."""
+    from test_soapy_driver import make_mock
+    from test_uhd_driver import FakeClock, make_fake_uhd
+    from test_vendor_drivers import FakeClock as IioClock
+    from test_vendor_drivers import (MockBladeRFModule, MockIioModule,
+                                     MockLms)
+    fakes = {"uhd": ("uhd", lambda: make_fake_uhd(FakeClock())[0]),
+             "soapy": ("SoapySDR", make_mock),
+             "bladerf": ("bladerf", MockBladeRFModule),
+             "dexter": ("iio", lambda: MockIioModule(IioClock()))}
+    if output == "lime":
+        monkeypatch.setattr(pkg["lime"], "_load_lms_api", MockLms)
+    else:
+        name, make = fakes[output]
+        monkeypatch.setitem(sys.modules, name, make())
+    cls = {"uhd": "UhdDevice", "soapy": "SoapyDevice", "lime": "LimeDevice",
+           "bladerf": "BladeRFDevice", "dexter": "DexterDevice"}[output]
+    monkeypatch.setattr(pkg["sdr"], cls, getattr(pkg[output], cls))
+
+
+def _a10b_run(pkg, kw, frames, tmp_path, monkeypatch):
+    """One package's runtime on the setting: (the TFs the sink or the SDR
+    device got, as (fct, timestamp fields, array), the SDR counters and
+    `sdr` RC values, or None)."""
+    import threading
+    from live_stream import (TcpServer, drive, edi_stream, free_port,
+                             record_sink, record_transmit, send_udp)
     eti = tmp_path / "in.eti"
-    eti.write_bytes(synth_eti_batch(4, mode=1).tobytes())
-    kw = {"input_name": str(eti), "output": "file",
-          "output_name": str(tmp_path / "out.iq"), **kw}
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A10\(b\)"):
-        ModRuntime(ModSettings(**kw).normalise_for_output(), device="cpu")
+    eti.write_bytes(frames.tobytes())
+    srv = TcpServer(frames.tobytes())
+    kw = {k: (v.format(tcp=f"127.0.0.1:{srv.port}", eti=eti)
+              if isinstance(v, str) else v) for k, v in kw.items()}
+    out = kw.get("output", "file")
+    s = pkg["Settings"](**{"input_name": str(eti), "output": "file",
+                           "output_name": str(tmp_path / "out.iq"),
+                           "file_output_format": "s16", "batch_tf": 2,
+                           "tcp_timeout": 0.3, **kw})
+    if out == "zmq":
+        s.output_name = f"tcp://127.0.0.1:{free_port()}"
+        s.zmq_output_socket_type = "rep"
+    if out not in ("file", "zmq", "loopback"):
+        _fake_vendor(pkg, out, monkeypatch)
+    rt = pkg["runtime"](s.normalise_for_output())
+    received = []
+    if out in ("file", "zmq"):
+        calls, tfs = record_sink(rt.output), []
+    else:
+        tfs = record_transmit(rt.output.device)
+    before = None
+    if s.input_name.startswith("udp://"):
+        udp = rt.reader.transport.sock.getsockname()[1]
+        before = threading.Thread(target=send_udp, daemon=True, args=(
+            udp, edi_stream(frames, 1_800_000_000.0))).start
+    if out == "zmq":
+        import zmq
+
+        def consumer():
+            sock = zmq.Context.instance().socket(zmq.REQ)
+            sock.connect(s.output_name)
+            sock.setsockopt(zmq.RCVTIMEO, 10000)
+            sock.setsockopt(zmq.LINGER, 0)
+            try:
+                for _ in range(2):
+                    sock.send(b"")
+                    received.append(sock.recv())
+            finally:
+                sock.close()
+        before = threading.Thread(target=consumer, daemon=True).start
+    try:
+        if getattr(rt.reader, "never_eof", False):
+            assert drive(rt, 16, deadline_s=30, before=before) == 0
+        else:
+            if before is not None:
+                before()
+            assert rt.run() == 0
+    finally:
+        rt.close()
+        srv.close()
+    assert rt.framecount == 16
+    sdr_state = None
+    if out in ("file", "zmq"):
+        for arr, meta in calls:
+            tfs += [(f, ts, arr[i]) for i, (f, ts) in enumerate(meta)]
+        if out == "zmq":
+            assert len(b"".join(received)) == sum(
+                a.nbytes for _, _, a in tfs)
+    else:
+        counters = {k: getattr(rt.output, k) for k in (
+            "frames", "queue_overflows", "dropped", "muted", "underruns")}
+        rc = dict((n, v) for n, v in pkg["rcs"].show("sdr")
+                  if n != "device_time")        # the device's own clock
+        sdr_state = (counters, rc)
+    return tfs, sdr_state
+
+
+@pytest.mark.parametrize("kw", A10B_SETTINGS, ids=A10B_IDS)
+def test_a10b_settings_match_reference(kw, tmp_path, monkeypatch):
+    """The runtime on each A10(b) input and output, 16 ETI frames (4 TFs,
+    batch_tf=2), the port on the CPU against dabmod_tpu: the same TFs
+    handed to the sink or transmitted by the SDR device, with the same
+    FCTs and timestamps (s16 within 1 LSB, f32 within 3e-5*max|ref|), the
+    same SDR counters and `sdr` RC values.  The SDR drivers run over the
+    fakes of their own tests."""
+    frames = synth_eti_batch(16, mode=1, subch_specs=BENCH_SPECS, seed=23)
+    res = {}
+    try:
+        for which, pkg in _a10b_packages().items():
+            res[which] = _a10b_run(pkg, kw, frames, tmp_path, monkeypatch)
+    finally:
+        for pkg in _a10b_packages().values():
+            pkg["rcs"].shutdown()
+    got, ref = res["torch"][0], res["jax"][0]
+    assert [(f, ts) for f, ts, _ in got] == [(f, ts) for f, ts, _ in ref]
+    assert [f for f, _, _ in got] == [0, 4, 8, 12]
+    for (_, _, g), (_, _, r) in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        if np.issubdtype(g.dtype, np.integer):
+            d = np.abs(g.view(np.int16).astype(np.int32) - r.view(np.int16))
+            assert d.max() <= 1
+        else:
+            np.testing.assert_allclose(g, r, atol=3e-5 * np.abs(r).max())
+    assert res["torch"][1] == res["jax"][1]
 
 
 # fft_engine=kiss|dexter, which raised NotImplementedError until ROADMAP A9
@@ -481,22 +621,26 @@ def test_inactive_cic_rate_is_accepted():
 PORT_MODULES = ["dabmod_tpu_torch." + m for m in (
     "runtime", "cli", "config", "io.readers", "io.outputs",
     "io.fic_decoder", "io.dexter_fft", "rc", "events", "timestamps",
-    "utils", "ops.kiss_fixed")]
+    "utils", "ops.kiss_fixed", "io.rs", "io.edi", "io.sdr",
+    "io.uhd_driver", "io.soapy_driver", "io.lime_driver",
+    "io.bladerf_driver", "io.dexter_driver")]
 
 
 def test_port_imports_no_jax():
     """Importing every module of dabmod_tpu_torch loads neither jax nor
-    any module of dabmod_tpu."""
+    any module of dabmod_tpu, nor zmq or yaml (the card's machine has
+    neither: the ZeroMQ sink and the RC's ZeroMQ server import zmq when
+    they start)."""
     code = (
         "import pkgutil, sys, importlib, dabmod_tpu_torch\n"
         "mods = [importlib.import_module(m.name) for m in pkgutil."
         "walk_packages(dabmod_tpu_torch.__path__, 'dabmod_tpu_torch.')]\n"
-        "assert len(mods) >= 27, mods\n"
+        "assert len(mods) >= 35, mods\n"
         f"missing = set({PORT_MODULES!r}) - set(m.__name__ for m in mods)\n"
         "assert not missing, missing\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'dabmod_tpu' or "
-        "m.startswith('dabmod_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'zmq', "
+        "'yaml', 'dabmod_tpu') or m.startswith(('jax.', 'zmq.', 'yaml.', "
+        "'dabmod_tpu.')))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

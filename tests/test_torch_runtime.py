@@ -14,30 +14,39 @@ import logging
 import os
 import signal
 import socket
+import sys
 import threading
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from dabmod_tpu import cli as j_cli
+from dabmod_tpu import runtime as j_runtime
 from dabmod_tpu import timestamps as j_timestamps
 from dabmod_tpu.config import ModSettings as JSettings
 from dabmod_tpu.io import fic_decoder as j_fic
 from dabmod_tpu.io import readers as j_readers
+from dabmod_tpu.io import sdr as j_sdr
 from dabmod_tpu.io.edi import crc16 as j_crc16
 from dabmod_tpu.models import Modulator as JModulator
 from dabmod_tpu.models import make_default_layout as j_layout
 from dabmod_tpu.rc import dispatch_line as j_dispatch_line
+from dabmod_tpu.rc import rcs as j_rcs
 from dabmod_tpu_torch import cli, events, tables, timestamps
+from dabmod_tpu_torch import runtime as t_runtime
 from dabmod_tpu_torch.config import ModSettings
 from dabmod_tpu_torch.eti import build_eti_frame, synth_eti_batch
 from dabmod_tpu_torch.io import fic_decoder, readers
+from dabmod_tpu_torch.io import sdr as t_sdr
 from dabmod_tpu_torch.io.readers import EtiFileReader
 from dabmod_tpu_torch.models import Modulator, make_default_layout
 from dabmod_tpu_torch.rc import ParameterError, dispatch_line, rcs
 from dabmod_tpu_torch.runtime import ModRuntime, RunResult
 import test_fic_decoder as figs
+from live_stream import (TcpServer, drive, edi_stream, feedback_request,
+                         record_sink, record_transmit, send_udp)
 from torch_threads import one_intra_op_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
@@ -115,8 +124,101 @@ def reference(tmp_path_factory):
     return inp, out
 
 
-@pytest.mark.parametrize("case", list(CLI_CASES))
-def test_cli_matches_reference(case, reference, tmp_path):
+# the live inputs and the SDR outputs from the command line and INI
+# sections: (command line or INI text, the vendor module faked, if any)
+LIVE_CLI_CASES = {
+    "tcp_uri": ("{tcp} -f {d}/out.iq -F s16 -b 1", None),
+    "uhd_flag": ("{eti} -u type=fake -b 1", "uhd"),
+    "edi_ini": ("[input]\ntransport=edi\nsource={tcp_edi}\n"
+                "[modulator]\nbatch_tf=1\n"
+                "[fileoutput]\nfilename={d}/out.iq\nformat=complexf\n", None),
+    "loopback_ini": ("[input]\nsource={eti}\n[modulator]\nbatch_tf=1\n"
+                     "[loopbackoutput]\nchannel=12C\ntxgain=10\n", None),
+    "soapy_ini": ("[input]\nsource={eti}\n[modulator]\nbatch_tf=1\n"
+                  "[soapyoutput]\ndevice=driver=fake\nfrequency=222064000"
+                  "\ntxgain=20\n", "soapy"),
+}
+
+
+def _cli_live(which, case, d, monkeypatch):
+    """One CLI's run of a live case: the TFs its sink or SDR device got,
+    (fct, timestamp fields, array).  The runtime stops after 2 batches (a
+    stream never ends by itself)."""
+    from test_soapy_driver import make_mock
+    from test_uhd_driver import FakeClock, make_fake_uhd
+    text, vendor = LIVE_CLI_CASES[case]
+    frames = synth_eti_batch(8, mode=1, subch_specs=BENCH_SPECS, seed=33)
+    eti = _write_raw(d, frames)
+    tcp = TcpServer(frames.tobytes())
+    tcp_edi = TcpServer(b"".join(edi_stream(frames, 1_800_000_000.0)))
+    text = text.format(tcp=f"tcp://127.0.0.1:{tcp.port}", eti=eti, d=d,
+                       tcp_edi=f"tcp://127.0.0.1:{tcp_edi.port}")
+    if vendor == "uhd":
+        monkeypatch.setitem(sys.modules, "uhd",
+                            make_fake_uhd(FakeClock())[0])
+    elif vendor == "soapy":
+        monkeypatch.setitem(sys.modules, "SoapySDR", make_mock())
+    mod, main = ((t_runtime, cli.main) if which == "torch"
+                 else (j_runtime, j_cli.main))
+    if vendor:
+        drv = {"uhd": "UhdDevice", "soapy": "SoapyDevice"}[vendor]
+        sdr = t_sdr if which == "torch" else j_sdr
+        drivers = __import__(sdr.__name__.rsplit(".", 1)[0] + "."
+                             + vendor + "_driver", fromlist=[drv])
+        monkeypatch.setattr(sdr, drv, getattr(drivers, drv))
+    made = []
+
+    class TwoBatches(mod.ModRuntime):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+            self.calls = self.sent = None
+            if hasattr(self.output, "device"):
+                self.sent = record_transmit(self.output.device)
+            else:
+                self.calls = record_sink(self.output)
+
+        def run(self, max_batches=None):
+            # a watchdog: a stream short of 2 batches must not hang the test
+            watchdog = threading.Timer(20.0, self.stop)
+            watchdog.start()
+            try:
+                return super().run(2)
+            finally:
+                watchdog.cancel()
+
+    monkeypatch.setattr(mod, "ModRuntime", TwoBatches)
+    if text.startswith("["):
+        ini = d / f"{case}.ini"
+        ini.write_text(text)
+        argv = [str(ini)]
+    else:
+        argv = text.split()
+    try:
+        assert main(argv + (["--device", "cpu"] if which == "torch"
+                            else [])) == 0
+    finally:
+        tcp.close()
+        tcp_edi.close()
+    rt, = made                  # closed by the CLI: every frame is out
+    return rt.sent if rt.calls is None else _tf_list(rt.calls)
+
+
+@pytest.mark.parametrize("case", list(CLI_CASES) + list(LIVE_CLI_CASES))
+def test_cli_matches_reference(case, reference, tmp_path, monkeypatch):
+    if case in LIVE_CLI_CASES:
+        # tcp:// on the command line, -u, and the EDI input and SDR
+        # output sections of an INI reach the live inputs and SDR sinks:
+        # the same TFs as dabmod_tpu.cli's, with the same timestamps
+        got = {}
+        for which in ("jax", "torch"):
+            d = tmp_path / which
+            d.mkdir()
+            got[which] = _cli_live(which, case, d, monkeypatch)
+            j_rcs.shutdown()
+        assert [f for f, _, _ in got["torch"]] == [0, 4]
+        _same_tfs(got["torch"], got["jax"])
+        return
     inp, ref_out = reference
     handlers = [signal.getsignal(sig) for sig in (signal.SIGINT,
                                                   signal.SIGTERM)]
@@ -614,3 +716,330 @@ def test_fic_decoder_matches_reference():
     assert json.dumps(got.ensemble.to_json(), sort_keys=True) == json.dumps(
         want.ensemble.to_json(), sort_keys=True)
     assert got.ensemble.to_json()["ensemble"]["label"] == "Test Ensemble"
+
+
+# ---------------------------------------------------------------------------
+# the live inputs and the SDR and ZeroMQ sinks (ROADMAP A10(b)) against
+# dabmod_tpu.runtime on the same stream
+# ---------------------------------------------------------------------------
+
+
+ONE_SPEC = ((0, 24, 0x22),)
+BOTH = {"jax": (JSettings, lambda s: j_runtime.ModRuntime(s), j_rcs),
+        "torch": (ModSettings, lambda s: ModRuntime(s, device="cpu"), rcs)}
+
+
+@pytest.fixture
+def _both_rc_down():
+    yield
+    j_rcs.shutdown()
+
+
+def _tf_list(calls):
+    """The sink's calls as one (fct, timestamp fields, I/Q of the TF)
+    entry a transmission frame."""
+    out = []
+    for arr, meta in calls:
+        assert len(arr) == len(meta)
+        out += [(fct, ts, arr[i]) for i, (fct, ts) in enumerate(meta)]
+    return out
+
+
+def _same_tfs(got, ref, tol_rel=3e-5):
+    """The same TFs, FCTs and timestamps; s16 wire words within 1 LSB,
+    f32 within tol_rel*max|ref|."""
+    assert [(f, ts) for f, ts, _ in got] == [(f, ts) for f, ts, _ in ref]
+    for (_, _, g), (_, _, r) in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        if g.dtype == np.int32:
+            d = np.abs(g.view(np.int16).astype(np.int32) - r.view(np.int16))
+            assert d.max() <= 1
+        else:
+            np.testing.assert_allclose(g, r, atol=tol_rel * np.abs(r).max())
+
+
+def _stream_times(frames, t0):
+    """{fct: (valid, seconds, pps, fct, fp)} of each frame of the stream
+    that edi_stream(frames, t0) carries, as the runtime should stamp a TF
+    whose first frame it is."""
+    sec0, tick0 = int(t0), int(round((t0 - int(t0)) * 16_384_000))
+    out = {}
+    for i, f in enumerate(frames):
+        ticks = tick0 + i * 393_216
+        fct, fp = int(f[4]), int(f[6] >> 5)     # the FC word's FCT, FP
+        out[fct] = (True, sec0 + ticks // 16_384_000, ticks % 16_384_000,
+                    fct, fp)
+    return out
+
+
+def _edi_run(which, transport, packets, want_frames, tmp_path, fmt="s16",
+             **kw):
+    Settings, make, _ = BOTH[which]
+    if transport == "tcp":
+        srv = TcpServer(b"".join(packets))
+        name = f"tcp://127.0.0.1:{srv.port}"
+    else:
+        srv, name = None, "udp://127.0.0.1:0"
+    s = Settings(input_transport="edi", input_name=name, output="file",
+                 output_name=str(tmp_path / f"{which}.iq"),
+                 file_output_format=fmt, batch_tf=2, **kw)
+    rt = make(s.normalise_for_output())
+    calls = record_sink(rt.output)
+    before = None
+    if transport == "udp":
+        port = rt.reader.transport.sock.getsockname()[1]
+        before = threading.Thread(target=send_udp, args=(port, packets),
+                                  daemon=True).start
+    try:
+        code = drive(rt, want_frames, deadline_s=30, before=before)
+    finally:
+        rt.close()
+        if srv is not None:
+            srv.close()
+    return code, rt, _tf_list(calls)
+
+
+def _lockstep_stream():
+    """An EDI stream that starts off frame phase 0 (FCT 3), changes its
+    ensemble layout at a batch boundary (FCT 24, from 2 sub-channels to
+    1), jumps from FCT 39 to 56, and ends on a partial batch (1 TF after
+    the read times out): 11 TFs are modulated."""
+    a = synth_eti_batch(80, mode=1, subch_specs=BENCH_SPECS, seed=51)
+    b = synth_eti_batch(80, mode=1, subch_specs=ONE_SPEC, seed=52)
+    return np.concatenate([a[3:24], b[24:40], b[56:68]])
+
+
+@pytest.mark.parametrize("transport", ["tcp", "udp"])
+def test_edi_timestamps_in_lockstep_match_reference(transport, tmp_path,
+                                                    _both_rc_down):
+    """EDI over TCP, and over UDP paced, into the port and into
+    dabmod_tpu.runtime: through FP-0 alignment, an ensemble
+    reconfiguration, an FCT restart and a partial batch, both hand the
+    sink the same TFs with the same timestamps, each its first frame's
+    EDI time (seconds + 946_684_800 + 32 - utco, TIST)."""
+    frames = _lockstep_stream()
+    t0 = 1_800_000_000.375
+    packets = edi_stream(frames, t0)
+    res = {w: _edi_run(w, transport, packets, 44, tmp_path) for w in BOTH}
+    for code, rt, tfs in res.values():
+        assert code == 0 and rt.framecount == 44 and len(tfs) == 11
+        assert rt.num_restarts == 1
+    _same_tfs(res["torch"][2], res["jax"][2])
+    want = _stream_times(frames, t0)
+    assert [f for f, _, _ in res["torch"][2]] == [
+        8, 12, 16, 20, 24, 28, 32, 36, 56, 60, 64]
+    for fct, ts, _ in res["torch"][2]:
+        assert ts == want[fct]
+    # the port's timings name the reader
+    assert res["torch"][1].timings["read_s"] > 0
+
+
+def test_edi_reconfiguration_inside_a_batch(tmp_path, _both_rc_down):
+    """A layout change two frames into a TF, inside a batch: the port
+    modulates the old layout's whole TFs, drops the two frames, realigns
+    the new layout to FP 0 and goes on, each TF with its own timestamp.
+    dabmod_tpu takes the same mixed batch again at every restart and gives
+    up (ROADMAP C)."""
+    a = synth_eti_batch(64, mode=1, subch_specs=BENCH_SPECS, seed=53)
+    b = synth_eti_batch(64, mode=1, subch_specs=ONE_SPEC, seed=54)
+    frames = np.concatenate([a[3:26], b[26:48]])
+    t0 = 1_800_000_100.0
+    packets = edi_stream(frames, t0)
+    code, rt, tfs = _edi_run("torch", "tcp", packets, 32, tmp_path)
+    assert code == 0 and rt.num_restarts == 1
+    want = _stream_times(frames, t0)
+    assert [f for f, _, _ in tfs] == [8, 12, 16, 20, 32, 36, 40, 44]
+    assert all(ts == want[f] for f, ts, _ in tfs)
+    code, rt, tfs = _edi_run("jax", "tcp", packets, 32, tmp_path)
+    assert code == 1 and [f for f, _, _ in tfs] == [8, 12, 16, 20]
+
+
+def test_partial_batches_of_any_whole_tf_count(tmp_path):
+    """A stream whose reads time out between frames dispatches batches of
+    1, 2 and 3 TFs (batch_tf=4): the step takes any multiple of C, and
+    the output equals the same frames read from a file."""
+    frames = synth_eti_batch(24, mode=1, subch_specs=BENCH_SPECS, seed=55)
+    srv = socket.socket()
+    srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    srv.settimeout(10)
+    port = srv.getsockname()[1]
+
+    def server():
+        conn, _ = srv.accept()
+        for lo, hi in ((0, 4), (4, 12), (12, 24)):
+            conn.sendall(frames[lo:hi].tobytes())
+            time.sleep(1.0)             # five read timeouts
+        time.sleep(1.0)
+        conn.close()
+
+    th = threading.Thread(target=server, daemon=True)
+    th.start()
+    s = _settings(f"tcp://127.0.0.1:{port}", str(tmp_path / "tcp.iq"),
+                  "s16", batch_tf=4, input_transport="tcp", tcp_timeout=0.2)
+    rt = ModRuntime(s, device="cpu")
+    calls = record_sink(rt.output)
+    assert drive(rt, 24, deadline_s=20) == 0
+    rt.close()
+    th.join(timeout=10)
+    srv.close()
+    assert [len(a) for a, _ in calls] == [1, 2, 3]
+    ref = _run(_settings(_write_raw(tmp_path, frames), str(tmp_path / "f.iq"),
+                         "s16", batch_tf=4))
+    assert ref.framecount == 24
+    assert (tmp_path / "tcp.iq").read_bytes() == (tmp_path / "f.iq").read_bytes()
+
+
+def _file_sdr(which, tmp_path, monkeypatch):
+    """open_output of the runtime's module replaced by an SdrOutput over a
+    FileSdrDevice (the reference's test sink for SDR output)."""
+    sdr = t_sdr if which == "torch" else j_sdr
+    mod = t_runtime if which == "torch" else j_runtime
+    path = tmp_path / f"sdr_{which}.iq"
+
+    def open_output(s):
+        return sdr.SdrOutput(sdr.FileSdrDevice(str(path)), sync=False,
+                             sample_rate=s.output_rate)
+    monkeypatch.setattr(mod, "open_output", open_output)
+    return path
+
+
+def test_eti_tcp_into_file_sdr_device_matches_reference(tmp_path,
+                                                         monkeypatch,
+                                                         _both_rc_down):
+    """ETI over TCP into an SdrOutput over a FileSdrDevice, f32 at the
+    SDR scale (output=uhd's planes contract and normalisation): the port
+    writes dabmod_tpu's frames, 3e-5*max|ref|, and counts them alike."""
+    frames = synth_eti_batch(16, mode=1, subch_specs=BENCH_SPECS, seed=56)
+    srv = TcpServer(frames.tobytes())
+    files, counts = {}, {}
+    try:
+        for which, (Settings, make, _) in BOTH.items():
+            files[which] = _file_sdr(which, tmp_path, monkeypatch)
+            s = Settings(input_transport="tcp",
+                         input_name=f"tcp://127.0.0.1:{srv.port}",
+                         output="uhd", batch_tf=2, tcp_timeout=0.3)
+            rt = make(s.normalise_for_output())
+            assert s.device_interleave is False
+            assert drive(rt, 16, deadline_s=30) == 0
+            rt.close()
+            counts[which] = rt.output.get_run_statistics()
+    finally:
+        srv.close()
+    assert counts["torch"] == counts["jax"]
+    assert counts["torch"]["frames"] == 4
+    g = np.fromfile(files["torch"], np.float32)
+    r = np.fromfile(files["jax"], np.float32)
+    assert g.size == r.size == 4 * TF * 2
+    np.testing.assert_allclose(g, r, atol=3e-5 * np.abs(r).max())
+
+
+def test_loopback_feedback_burst_matches_reference(tmp_path, _both_rc_down):
+    """The loopback sink with its DPD feedback server: a request made
+    before the run gets the first TF's first 4096 samples (the NULL
+    symbol's 2656 and the start of the first symbol), and RX =
+    10**((txgain + rxgain) / 20) * TX, in the port as in dabmod_tpu."""
+    inp = _write_raw(tmp_path, synth_eti_batch(16, mode=1,
+                                               subch_specs=BENCH_SPECS,
+                                               seed=57))
+    got = {}
+    for which, (Settings, make, _) in BOTH.items():
+        port = _free_port()
+        s = Settings(input_name=inp, output="loopback", batch_tf=1,
+                     sdr_txgain=6.0, sdr_rxgain=-3.0, sdr_dpd_port=port)
+        rt = make(s.normalise_for_output())
+        result = {}
+        th = threading.Thread(target=lambda: result.update(
+            r=feedback_request(port, 4096)), daemon=True)
+        th.start()
+        server = rt.output.feedback_server
+        deadline = time.monotonic() + 10
+        while server._want_samples != 4096 and time.monotonic() < deadline:
+            time.sleep(0.01)                # until the request is in
+        assert rt.run() == 0
+        th.join(timeout=15)
+        rt.close()
+        got[which] = result["r"]
+        n, tx_key, tx, rx_key, rx = got[which]
+        assert n == 4096 and tx_key == rx_key
+        assert np.abs(tx[2656:]).max() > 0          # after the NULL symbol
+        np.testing.assert_allclose(rx, tx * 10 ** (3.0 / 20), rtol=1e-5,
+                                   atol=1e-7)
+        assert rt.output.frames == 4
+    assert got["torch"][1] == got["jax"][1]
+    r = got["jax"][2]
+    np.testing.assert_allclose(got["torch"][2], r,
+                               atol=3e-5 * np.abs(r).max())
+
+
+@pytest.mark.parametrize("fmt", ["complexf", "s16"])
+def test_zmq_sink_matches_reference(fmt, tmp_path, _both_rc_down):
+    """The ZeroMQ REP sink: one message a batch, the port's bytes
+    dabmod_tpu's (s16 within 1 LSB, f32 within 3e-5*max|ref|)."""
+    zmq = pytest.importorskip("zmq")
+    inp = _write_raw(tmp_path, synth_eti_batch(8, mode=1, seed=58))
+    got = {}
+    for which, (Settings, make, _) in BOTH.items():
+        port = _free_port()
+        s = Settings(input_name=inp, output="zmq",
+                     output_name=f"tcp://127.0.0.1:{port}",
+                     zmq_output_socket_type="rep", zmq_output_format=fmt,
+                     batch_tf=1)
+        rt = make(s.normalise_for_output())
+        received = []
+
+        def consumer():
+            sock = zmq.Context.instance().socket(zmq.REQ)
+            sock.connect(f"tcp://127.0.0.1:{port}")
+            sock.setsockopt(zmq.RCVTIMEO, 10000)
+            sock.setsockopt(zmq.LINGER, 0)
+            try:
+                for _ in range(2):
+                    sock.send(b"")
+                    received.append(sock.recv())
+            finally:
+                sock.close()
+        th = threading.Thread(target=consumer, daemon=True)
+        th.start()
+        assert rt.run() == 0
+        th.join(timeout=15)
+        rt.close()
+        got[which] = received
+    assert [len(m) for m in got["torch"]] == [len(m) for m in got["jax"]] \
+        == [TF * 2 * (2 if fmt == "s16" else 4)] * 2
+    g, r = b"".join(got["torch"]), b"".join(got["jax"])
+    if fmt == "s16":
+        d = np.abs(np.frombuffer(g, np.int16).astype(np.int32)
+                   - np.frombuffer(r, np.int16))
+        assert d.max() <= 1
+    else:
+        g, r = np.frombuffer(g, np.float32), np.frombuffer(r, np.float32)
+        np.testing.assert_allclose(g, r, atol=3e-5 * np.abs(r).max())
+
+
+def test_sdr_rc_matches_reference(tmp_path, _both_rc_down):
+    """The `sdr` RC module of a loopback sink: the same parameters and
+    values as dabmod_tpu's, the setters reach the device and the sink, and
+    the counters after a run agree."""
+    inp = _write_raw(tmp_path, synth_eti_batch(8, mode=1, seed=59))
+    shown = {}
+    for which, (Settings, make, registry) in BOTH.items():
+        s = Settings(input_name=inp, output="loopback", batch_tf=1,
+                     sdr_txgain=40.0, sdr_rxgain=20.0,
+                     sdr_frequency=227_360_000.0)
+        rt = make(s.normalise_for_output())
+        registry.set_param("sdr", "txgain", "42.5")
+        registry.set_param("sdr", "rxgain", "21")
+        registry.set_param("sdr", "freq", "223936000")
+        assert rt.output.device.txgain == 42.5
+        assert rt.output.device.frequency == 223_936_000.0
+        assert rt.run() == 0
+        rt.close()
+        registry.set_param("sdr", "muting", "1")
+        assert rt.output.muting is True
+        shown[which] = registry.show("sdr")
+        with pytest.raises(Exception, match="read-only"):
+            registry.set_param("sdr", "frames", "0")
+    assert shown["torch"] == shown["jax"]
+    assert dict(shown["torch"])["frames"] == "2"
