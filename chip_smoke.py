@@ -117,17 +117,39 @@ Phases, in order; any failure exits non-zero and prints no result:
    equal to the frame sent under its timestamp, and RX = gain*TX.
    (e) also: the pinned host memory Python references before and after
    the run, and the batch buffers the SDR queue's frames held at most.
+9. The DPD control plane against the card (dabmod_tpu_torch/dpd/, gui.py;
+   ModRuntime in a thread on realistic17_dpd_8m192's INI with the telnet
+   RC, EDI over TCP released a batch at a time whenever the feedback
+   server holds a request, the loopback SDR keeping 2 batches of frames
+   and a PA of tests/test_sdr_dpd.py's compression and AM/PM at the
+   chain's own peak): the GUI (make_handler) over chip_smoke's telnet
+   stand-in for the ZeroMQ RC client (the card's machine has no pyzmq):
+   /, /api/rc, /api/stats, /api/signal (a burst off the feedback port),
+   then 3 poly iterations of its DPD panel (POST /api/dpd/start, polled
+   on /api/dpd/status), then 2 iterations of run_engine with the LUT
+   model.  Fails on an iteration that did not adapt, a reply other than
+   HTTP 200, a poly swap that rebuilt, a LUT switch other than one
+   rebuild then hot swaps, a poly fit without the PA's compression
+   (gain at 0.6 above gain at 0.1 by 1 %) or phase (AM/PM at 0.7 above
+   0.01 rad), a LUT whose magnitude does not grow with amplitude, K2 or
+   K3 launched no time; the 24 TFs modulated after the last swap against
+   the CPU runtime with the same LUT file on the same stream, within
+   1e-4*max|ref| except samples that took the neighbouring LUT entry at
+   a bin edge within the pre-DPD tolerance.  Prints each iteration's
+   wall, split into measure, align, fit and RC swap, and the runtime's
+   frames/s during the adaptation.
 
 TF32 is switched off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False): every tolerance below assumes fp32
 arithmetic.  The line before the last is one JSON object with the kernels'
-numbers (and the eager stages' times and the runtime's and the live
-phase's records), labelled
+numbers (and the eager stages' times and the runtime's, the live
+phase's and the DPD loop's records), labelled
 with the card's name and power limit; the last is
 {"ok": true, "device": {...}}.
 """
 import itertools
 import json
+import logging
 import os
 import re
 import shutil
@@ -1778,6 +1800,23 @@ def _feedback_client(port, result):
         return
 
 
+def _dpd_chain_ini(coef):
+    """realistic17_dpd_8m192's settings as INI lines after [modulator]'s
+    gainmode and batch_tf (phases 8 (d) and 9): TII, CFR 40/3, window 90,
+    the default FIR, 8.192 MS/s, the DPD file `coef`, synchronous
+    delay management."""
+    return ("rate=8192000\nofdmwindowing=90\n[cfr]\nenable=1\nclip=40.0\n"
+            "errorclip=3.0\n[tii]\nenable=1\ncomb=5\npattern=31\n"
+            "[firfilter]\nenabled=1\n[poly]\nenabled=1\n"
+            f"polycoeffile={coef}\n"
+            "[delaymanagement]\nsynchronous=1\noffset=0\n")
+
+
+def _loopback_ini(dpd_port):
+    return (f"[loopbackoutput]\nchannel=12C\ntxgain={FB_TXGAIN}\n"
+            f"rxgain={FB_RXGAIN}\ndpd_port={dpd_port}\n")
+
+
 def _live_ini(d, name, source, transport, extra, output):
     path = os.path.join(d, f"{name}.ini")
     with open(path, "w") as f:
@@ -1922,13 +1961,7 @@ def phase_live(torch):
     t_enc = time.perf_counter()
     edi = TcpServer(b"".join(edi_stream(frames, t0)))
     enc_s = time.perf_counter() - t_enc
-    dpd = ("rate=8192000\nofdmwindowing=90\n[cfr]\nenable=1\nclip=40.0\n"
-           "errorclip=3.0\n[tii]\nenable=1\ncomb=5\npattern=31\n"
-           "[firfilter]\nenabled=1\n[poly]\nenabled=1\n"
-           f"polycoeffile={poly}\n"
-           "[delaymanagement]\nsynchronous=1\noffset=0\n")
-    loop = (f"[loopbackoutput]\nchannel=12C\ntxgain={FB_TXGAIN}\n"
-            f"rxgain={FB_RXGAIN}\ndpd_port={{port}}\n")
+    dpd = _dpd_chain_ini(poly)
     src = f"tcp://127.0.0.1:{edi.port}"
     name = "d_edi_dpd_8m192_loopback"
     try:
@@ -1936,7 +1969,7 @@ def phase_live(torch):
             k.launches = 0
         fb = {}
         ini = _live_ini(d, name, src, "edi", dpd,
-                        loop.format(port=free_port()))
+                        _loopback_ini(free_port()))
         wall, rt, got, counters = _run_live(torch, ini, "cuda",
                                             LIVE_BATCHES, keep, fb)
         counts = {k: f.launches for k, f in kernels.items()}
@@ -1946,7 +1979,7 @@ def phase_live(torch):
               f"[8] {name}: counters {counters}, {n_tf} TFs sent")
         _, rt_cpu, ref, _ = _run_live(
             torch, _live_ini(d, name + "_cpu", src, "edi", dpd,
-                             loop.format(port=free_port())),
+                             _loopback_ini(free_port())),
             "cpu", LIVE_COMPARED, keep)
         common, worst = _compare_live(name, got, ref, "f32")
         got_keys = [k for k, _ in got["order"][:keep]]
@@ -1981,7 +2014,7 @@ def phase_live(torch):
         # the warm run, timed
         wall_t, rt_t, _, counters_t = _run_live(
             torch, _live_ini(d, name + "_timed", src, "edi", dpd,
-                             loop.format(port=free_port())),
+                             _loopback_ini(free_port())),
             "cuda", LIVE_BATCHES, 0)
     finally:
         edi.close()
@@ -2102,6 +2135,551 @@ def phase_live(torch):
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the DPD control plane against the card runtime (ROADMAP A14)
+# ---------------------------------------------------------------------------
+
+DPD_BATCHES = 16             # batches the on-demand EDI stream holds at most
+DPD_MARGIN_S = 60.0          # the EDI timestamps' lead on the wall clock:
+                             # the last batch's stays within the SDR's 100 s
+DPD_POLY_ITERS = 3           # through the GUI's DPD panel
+DPD_LUT_ITERS = 2            # through run_engine
+DPD_GATE_S = 2.0             # time after which a request that the batch in
+                             # flight did not answer gets another one
+DPD_WAIT_S = 120.0           # deadline of each wait of the phase
+PA_COMPRESSION, PA_PHASE = 0.2, 0.15    # tests/test_sdr_dpd.py:100-106
+DPD_BURST = 40960            # samples a burst of the engine (run_engine's
+                             # samples_per_burst), from a TF's start
+PRE_DPD_REL = 3e-5           # f32 tolerance before the DPD, of max|ref|
+TELNET_BANNER = "Enter 'help' for help\r\n"
+TELNET_BYE = "Goodbye\r\n"
+
+
+class TelnetRc:
+    """A stand-in for dabmod_tpu_torch.rc.client.ModRemoteControl, whose
+    zmq the card's machine lacks: its methods over the port's telnet RC
+    (rc/__init__.py: TelnetRC, dispatch_line).  Telnet replies are not
+    framed (show and list reply with several lines), so each call is one
+    connection: the command, then quit, and the reply is all that came
+    before the goodbye.  `endpoint` is tcp://host:port."""
+
+    def __init__(self, endpoint: str, timeout_s: float = 5.0):
+        host, port = endpoint.split("//")[-1].rsplit(":", 1)
+        self.addr = (host, int(port))
+        self.timeout_s = timeout_s
+
+    def _call(self, line: str) -> str:
+        import socket
+        with socket.create_connection(self.addr,
+                                      timeout=self.timeout_s) as s:
+            s.sendall(line.encode() + b"\nquit\n")
+            data = b""
+            while True:
+                b = s.recv(65536)
+                if not b:
+                    break
+                data += b
+        text = data.decode()
+        if not (text.startswith(TELNET_BANNER) and text.endswith(
+                "\r\n" + TELNET_BYE)):
+            raise RuntimeError(f"telnet RC: unexpected reply {text!r}")
+        return text[len(TELNET_BANNER):-len("\r\n" + TELNET_BYE)]
+
+    def ping(self) -> bool:
+        return self._call("help").startswith("The following commands")
+
+    def get_modules(self) -> list:
+        return [m for m in self._call("list").splitlines()
+                if m and not m.startswith("\t")]
+
+    def show(self, module: str) -> dict:
+        rep = self._call(f"show {module}")
+        if rep and not rep.endswith("\n"):
+            raise RuntimeError(f"rc show failed: {rep}")
+        return dict(line.partition(": ")[::2] for line in rep.splitlines())
+
+    def get_param_value(self, module: str, param: str) -> str:
+        rep = self._call(f"get {module} {param}")
+        if rep.startswith(("Module '", "Parameter '", "Incorrect ")):
+            raise RuntimeError(f"rc get failed: {rep}")
+        return rep
+
+    def set_param_value(self, module: str, param: str, value):
+        value = str(value)
+        if not value or any(c.isspace() for c in value):
+            # dispatch_line splits the line at whitespace
+            raise ValueError(f"telnet RC: {value!r} is empty or has spaces")
+        rep = self._call(f"set {module} {param} {value}")
+        if rep != "ok":
+            raise RuntimeError(f"rc set failed: {rep}")
+
+    def close(self):
+        pass
+
+
+def _timed(events, name, fn):
+    """fn, appending (name, start, seconds) to `events` at each call."""
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            events.append((name, t, time.perf_counter() - t))
+    return timed
+
+
+def _iterations(events) -> list:
+    """The timed calls grouped into the engine's iterations, each opened
+    by a measurement: measure, align (normalise_burst: the lag, the
+    fractional delay, the phase, the scaling), fit (adapt_iteration) and
+    RC swap (Adapt.set_predistorter: the file, the RC set, the runtime's
+    reload), and the wall from the measurement's start to the last
+    call's end."""
+    its = []
+    for name, t, dt in events:
+        if name == "measure":
+            its.append({"t": t, "measure_s": dt, "end": t + dt})
+        elif its:
+            its[-1][f"{name}_s"] = its[-1].get(f"{name}_s", 0.0) + dt
+            its[-1]["end"] = t + dt
+    for it in its:
+        it["wall_s"] = it.pop("end") - it.pop("t")
+    return its
+
+
+def _feed_on_demand(server, fbs, stop, rec):
+    """Release a batch of the stream whenever the feedback server holds a
+    request that no frame has answered and the batch released last has
+    been sent whole (or DPD_GATE_S have passed since): the runtime
+    modulates what the engine asks for, and the stream, and the CPU run
+    that checks it, stay short."""
+    last = time.monotonic()
+    while not stop.is_set():
+        now = time.monotonic()
+        if (fbs._want_samples and fbs._tx_frame is None
+                and (len(rec["keys"]) >= server.released * BATCH_TF
+                     or now - last >= DPD_GATE_S)):
+            server.release()
+            last = now
+        time.sleep(0.002)
+
+
+def _record_dpd_device(dev, keep=False):
+    """Wrap dev.transmit_frame: every frame's timestamp key in order, the
+    peak magnitude of the bursts the engine measures in the first batch's
+    frames (their first DPD_BURST samples), and a copy of each frame sent
+    while rec["keep"] is True or whose key is in it (a set)."""
+    rec = {"keys": [], "peak": 0.0, "keep": keep, "frames": {}}
+    transmit = dev.transmit_frame
+
+    def recording(samples, ts):
+        key = (int(ts.seconds), int(ts.pps))
+        rec["keys"].append(key)
+        if len(rec["keys"]) <= BATCH_TF:
+            x = np.asarray(samples, np.float32).reshape(-1, 2)[:DPD_BURST]
+            rec["peak"] = max(rec["peak"], float(np.sqrt(
+                (x * x).sum(-1)).max()))
+        if rec["keep"] is True or key in (rec["keep"] or ()):
+            rec["frames"][key] = np.array(samples)
+        return transmit(samples, ts)
+
+    dev.transmit_frame = recording
+    return rec
+
+
+def _pa_model(peak):
+    """tests/test_sdr_dpd.py's PA (compression 1 - 0.2 a^2, AM/PM 0.15 a^2
+    rad) at a = |x| / peak, the peak of the bursts this chain emits (the
+    engine normalises each burst by its own peak): without the scale the
+    PA would be linear at the level this chain emits."""
+    def pa(x):
+        m2 = np.abs(x / peak) ** 2
+        return (x * (1.0 - PA_COMPRESSION * m2)
+                * np.exp(1j * PA_PHASE * m2)).astype(np.complex64)
+    return pa
+
+
+def _lut_candidates(y, lut, scale, slack):
+    """For one output sample y (complex) of the LUT predistorter: each bin
+    b whose input y / L[b] lies in bin b's magnitude range, give or take
+    `slack`, with that input."""
+    from dabmod_tpu_torch.ops.filters import LUT_BIN
+    width = LUT_BIN / scale
+    out = []
+    for b in range(len(lut)):
+        x = y / lut[b]
+        lo, hi = b * width, (b + 1) * width if b < len(lut) - 1 else np.inf
+        if lo - slack <= abs(x) <= hi + slack:
+            out.append((b, x))
+    return out
+
+
+def _check_lut_frames(got, ref, lut, scale):
+    """The card's frames against the CPU's (both f32 pairs after the LUT
+    DPD): within DPD_REL*max|ref|, except samples where the two took
+    neighbouring LUT entries; there each side's input (its output over
+    its entry) must agree with the other's within PRE_DPD_REL*max|input|
+    and lie that close to the edge between the two bins.  Returns (max
+    err over the tolerance elsewhere, the samples at an edge)."""
+    from dabmod_tpu_torch.ops.filters import LUT_BIN
+    worst, edge = 0.0, 0
+    lut_c = lut[:, 0].astype(np.float64) + 1j * lut[:, 1]
+    for k in sorted(ref):
+        g = got[k].astype(np.float64).reshape(-1, 2)
+        r = ref[k].astype(np.float64).reshape(-1, 2)
+        check(g.shape == r.shape and bool(np.isfinite(g).all()),
+              f"[9] frame {k}: {g.shape} vs {r.shape}, or not finite")
+        yg, yr = g[:, 0] + 1j * g[:, 1], r[:, 0] + 1j * r[:, 1]
+        tol = DPD_REL * float(np.abs(yr).max())
+        slack = PRE_DPD_REL * float(np.abs(yr).max()) / np.abs(lut_c).min()
+        err = np.abs(yg - yr)
+        bad = np.flatnonzero(err > tol)
+        check(bad.size <= 1000, f"[9] frame {k}: {bad.size} samples off")
+        for i in bad:
+            ok = False
+            for bg, xg in _lut_candidates(yg[i], lut_c, scale, slack):
+                for br, xr in _lut_candidates(yr[i], lut_c, scale, slack):
+                    e = max(bg, br) * LUT_BIN / scale
+                    ok = ok or (abs(bg - br) == 1 and abs(xg - xr) <= slack
+                                and abs(abs(xr) - e) <= slack)
+            check(ok, f"[9] frame {k} sample {i}: card {yg[i]} vs CPU "
+                      f"{yr[i]}, not a neighbouring LUT entry at a bin "
+                      f"edge")
+        edge += bad.size
+        mask = np.ones(err.size, bool)
+        mask[bad] = False
+        worst = max(worst, float(err[mask].max()) / tol)
+    return worst, edge
+
+
+class _LogCount(logging.Handler):
+    """The runtime's log lines that tell a hot swap from a rebuild."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def count(self, text):
+        return sum(text in m for m in self.lines)
+
+
+def _http(port, path, method="GET") -> bytes:
+    """One request to the GUI; a reply other than 200 fails the run (the
+    handlers turn an exception into HTTP 500)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=DPD_WAIT_S) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    check(status == 200, f"[9] GUI {method} {path}: HTTP {status} "
+          f"{body[:300]!r}")
+    return body
+
+
+def phase_dpd(torch, card):
+    """Phase 9: the port's DPD control plane against the card runtime of
+    realistic17_dpd_8m192 (the 17-sub-channel ensemble, batch_tf=24, EDI
+    over TCP with timestamps DPD_MARGIN_S ahead, TII, CFR 40/3, window 90,
+    FIR, 8.192 MS/s, the poly DPD from an identity file, the loopback SDR
+    with the feedback server and a PA that compresses and turns the phase
+    at this chain's level, the telnet RC).  The stream is released a
+    batch at a time, whenever the feedback server holds a request.  The
+    GUI (make_handler, port 0) over a telnet stand-in for the ZeroMQ RC
+    client: /, /api/rc, /api/stats, /api/signal, then POST /api/dpd/start
+    (poly, DPD_POLY_ITERS) polled on /api/dpd/status to its end; then
+    run_engine(model_kind="lut") for DPD_LUT_ITERS.  Checks: every
+    iteration adapted, the poly swaps hot with no rebuild, one rebuild at
+    the first LUT file and hot swaps after it, the fitted poly's
+    compression and AM/PM and the LUT's growing magnitude, K2 and K3
+    launched, and one batch after the last swap equal to the CPU
+    runtime's with the same LUT file."""
+    import threading
+    from http.server import ThreadingHTTPServer
+    from dabmod_tpu_torch import gui
+    from dabmod_tpu_torch.config import parse_ini
+    from dabmod_tpu_torch.dpd import Poly, adapt, dpdce, measure
+    from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS, synth_eti_batch
+    from dabmod_tpu_torch.models.modulator import load_dpd_file
+    from dabmod_tpu_torch.rc import rcs
+    from dabmod_tpu_torch.runtime import ModRuntime
+    from live_stream import (ChunkServer, TcpServer, drive, edi_stream,
+                             free_port)
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="chip_smoke_dpd_")
+    _TMP.append(d)
+    nf = BATCH_TF * 4
+    frames = synth_eti_batch(DPD_BATCHES * nf, mode=1,
+                             subch_specs=REALISTIC_MUX_SPECS, seed=SEED + 9)
+    t0 = time.time() + DPD_MARGIN_S
+    chunks = [b"".join(edi_stream(frames[i * nf:(i + 1) * nf], t0,
+                                  start=i * nf))
+              for i in range(DPD_BATCHES)]
+    gui_coef = dpdce.DEFAULT_COEF_PATH    # the GUI's engine writes here
+    gui_coef_existed = os.path.exists(gui_coef)
+    identity = os.path.join(d, "identity.coef")
+    adapt.write_coef_file(identity, [1, 0, 0, 0, 0], [0, 0, 0, 0, 0])
+    lut_path = os.path.join(d, "lut.coef")
+    telnet = free_port()
+    ep = f"tcp://127.0.0.1:{telnet}"
+    kernels = _kernels()
+    events = []
+    saved = (adapt.ModRemoteControl, measure.Measure.get_samples,
+             dpdce.normalise_burst, dpdce.adapt_iteration,
+             adapt.Adapt.set_predistorter)
+    adapt.ModRemoteControl = TelnetRc
+    measure.Measure.get_samples = _timed(events, "measure", saved[1])
+    dpdce.normalise_burst = _timed(events, "align", saved[2])
+    dpdce.adapt_iteration = _timed(events, "fit", saved[3])
+    adapt.Adapt.set_predistorter = _timed(events, "swap", saved[4])
+    rt_log = logging.getLogger("dabmod_tpu_torch")
+    level = rt_log.level
+    counter = _LogCount()
+    rt_log.addHandler(counter)
+    rt_log.setLevel(logging.INFO)
+    server = ChunkServer(chunks)
+    stop = threading.Event()
+    httpd = feeder = rt_thread = None
+    rc_codes = []
+    try:
+        s = parse_ini(_live_ini(
+            d, "dpd_loop", f"tcp://127.0.0.1:{server.port}", "edi",
+            _dpd_chain_ini(identity), _loopback_ini(free_port())
+            + f"[remotecontrol]\ntelnet=1\ntelnetport={telnet}\n"))
+        rt = ModRuntime(s, device="cuda")
+        dev = rt.output.device
+        dev._hist_max = 2 * BATCH_TF     # phase 8's history: 2 batches
+        rec = _record_dpd_device(dev)
+        fbs = rt.output.feedback_server
+        for k in kernels.values():
+            k.launches = 0
+        rt_thread = threading.Thread(target=lambda: rc_codes.append(
+            rt.run()), daemon=True)
+        rt_thread.start()
+        # the first batch: the level of the chain's bursts, for the PA
+        server.release()
+        deadline = time.monotonic() + DPD_WAIT_S
+        while len(rec["keys"]) < BATCH_TF and time.monotonic() < deadline:
+            time.sleep(0.02)
+        check(len(rec["keys"]) >= BATCH_TF and rec["peak"] > 0,
+              f"[9] the first batch: {len(rec['keys'])} TFs sent, peak "
+              f"{rec['peak']}")
+        dev.pa_model = _pa_model(rec["peak"])
+        feeder = threading.Thread(target=_feed_on_demand,
+                                  args=(server, fbs, stop, rec), daemon=True)
+        feeder.start()
+
+        # the GUI over the telnet stand-in, its engine on the feedback port
+        rc = TelnetRc(ep)
+        check(rc.ping(), "[9] the telnet RC does not answer")
+        panel = gui.DpdPanel(ep, "127.0.0.1", s.sdr_dpd_port)
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), gui.make_handler(
+            rc, panel, ("127.0.0.1", s.sdr_dpd_port),
+            sample_rate=s.output_rate))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        port = httpd.server_address[1]
+        page = _http(port, "/")
+        check(b"dabmod-tpu" in page, "[9] GUI: no page")
+        mods = json.loads(_http(port, "/api/rc"))
+        check({"poly", "sdr", "modulator"} <= set(mods)
+              and mods["poly"]["coeffile"] == identity,
+              f"[9] GUI /api/rc: {sorted(mods)}")
+        stats = json.loads(_http(port, "/api/stats"))
+        check("frames" in stats.get("sdr", {}),
+              f"[9] GUI /api/stats: {stats}")
+        sig = json.loads(_http(port, "/api/signal"))
+        check(sig["sample_rate"] == 8_192_000 and sig["n_samples"] == 32768
+              and len(sig["spectrum_db"]) >= 256
+              and bool(np.isfinite(sig["spectrum_db"]).all())
+              and len(sig["const_i"]) > 100,
+              f"[9] GUI /api/signal: {sig.get('n_samples')} samples, "
+              f"{len(sig.get('spectrum_db', []))} spectrum bins")
+
+        # poly through the GUI's DPD panel
+        del events[:]
+        frames0, t_adapt = rt.framecount, time.perf_counter()
+        started = json.loads(_http(
+            port, f"/api/dpd/start?iterations={DPD_POLY_ITERS}&kind=poly",
+            "POST"))
+        check(started == {"ok": True}, f"[9] GUI dpd start: {started}")
+        deadline = time.monotonic() + DPD_WAIT_S
+        while True:
+            st = json.loads(_http(port, "/api/dpd/status"))
+            if not st["running"] or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        check(not st["running"], "[9] the GUI's DPD engine did not finish")
+        hist = st["history"]
+        check(len(hist) == DPD_POLY_ITERS
+              and all(h.get("state") == "adapted" for h in hist),
+              f"[9] GUI poly iterations: {hist}")
+        poly_path = rc.get_param_value("poly", "coeffile")
+        kind, (am, pm) = load_dpd_file(poly_path)
+        check(kind == "poly"
+              and np.round(am, 6).tolist() == hist[-1]["coefs_am"]
+              and np.round(pm, 6).tolist() == hist[-1]["coefs_pm"],
+              f"[9] {poly_path}: {kind} {am} {pm} is not the engine's "
+              f"last fit {hist[-1]}")
+        poly = Poly()
+        poly.coefs_am, poly.coefs_pm = am, pm
+        gain_hi = float(poly.am_am(np.array([0.6]))[0]) / 0.6
+        gain_lo = float(poly.am_am(np.array([0.1]))[0]) / 0.1
+        am_pm = float(poly.am_pm(np.array([0.7]))[0])
+        check(gain_hi > gain_lo * 1.01 and am_pm > 0.01,
+              f"[9] the fitted poly shows no compression or phase: gain "
+              f"{gain_lo:.4f} at 0.1, {gain_hi:.4f} at 0.6, AM/PM "
+              f"{am_pm:.4f} rad at 0.7")
+        n_poly_swaps = counter.count("DPD poly coefficients hot-swapped")
+        n_rebuild_poly = counter.count("pipeline")
+        check(n_poly_swaps == DPD_POLY_ITERS and n_rebuild_poly == 0,
+              f"[9] poly: {n_poly_swaps} hot swaps, {n_rebuild_poly} "
+              f"rebuilds: {counter.lines}")
+        mod_poly = rt.modulator
+
+        # the LUT through run_engine: a rebuild, then hot swaps
+        status = []
+        lut = dpdce.run_engine(ep, "127.0.0.1", s.sdr_dpd_port,
+                               iterations=DPD_LUT_ITERS, coef_path=lut_path,
+                               model_kind="lut", status_cb=status.append)
+        adapt_s = time.perf_counter() - t_adapt
+        adapt_frames = rt.framecount - frames0
+        check(len(status) == DPD_LUT_ITERS
+              and all(r["state"] == "adapted" for r in status),
+              f"[9] LUT iterations: {status}")
+        mags = np.abs(lut.lut)
+        filled = np.flatnonzero(mags != 1.0)
+        check(filled.size > 4 and mags[filled[-1]] > mags[filled[0]],
+              f"[9] the fitted LUT's magnitude does not grow: {mags}")
+        kind, (scale, pairs) = load_dpd_file(lut_path)
+        check(kind == "lut" and np.array_equal(
+            pairs, np.stack([lut.lut.real, lut.lut.imag], -1)),
+            f"[9] {lut_path} is not the engine's last LUT")
+        check(rc.get_param_value("poly", "coeffile") == lut_path,
+              "[9] the runtime does not name the LUT file")
+        # one more batch, modulated after the last swap, kept whole
+        n_sent = len(rec["keys"])
+        rec["keep"] = True
+        check(server.release(), "[9] the stream ran out of batches")
+        deadline = time.monotonic() + DPD_WAIT_S
+        while (len(rec["keys"]) < server.released * BATCH_TF
+               and time.monotonic() < deadline):
+            time.sleep(0.02)
+        check(len(rec["keys"]) == server.released * BATCH_TF,
+              f"[9] {len(rec['keys'])} TFs sent of the "
+              f"{server.released * BATCH_TF} released")
+        post = rec["keys"][n_sent:]
+        n_lut_swaps = counter.count("DPD lut coefficients hot-swapped")
+        n_rebuild = counter.count("pipeline")
+        check(n_rebuild == 1 and n_lut_swaps == DPD_LUT_ITERS - 1
+              and rt.modulator is not mod_poly
+              and rt.modulator._lut is not None,
+              f"[9] LUT: {n_rebuild} rebuilds, {n_lut_swaps} hot swaps: "
+              f"{counter.lines}")
+    finally:
+        stop.set()
+        if feeder is not None:
+            feeder.join(timeout=5)
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if rt_thread is not None:
+            rt.stop()
+            rt_thread.join(timeout=DPD_WAIT_S)
+        server.close()
+        (adapt.ModRemoteControl, measure.Measure.get_samples,
+         dpdce.normalise_burst, dpdce.adapt_iteration,
+         adapt.Adapt.set_predistorter) = saved
+        rt_log.removeHandler(counter)
+        rt_log.setLevel(level)
+        rcs.shutdown()
+        if not gui_coef_existed and os.path.exists(gui_coef):
+            os.remove(gui_coef)
+    counts = {k: f.launches for k, f in kernels.items()}
+    check(not rt_thread.is_alive() and rc_codes == [0],
+          f"[9] the card runtime did not stop with 0: {rc_codes}")
+    rt.close()
+    check(rt.output.fault is None and rt.output.dropped == 0,
+          f"[9] SDR device fault {rt.output.fault!r}, "
+          f"{rt.output.dropped} frames dropped")
+    for k in ("ofdm_cfr", "resample_poly"):
+        check(counts[k] > 0, f"[9] the DPD loop never launched {k}")
+    check(counts["ofdm_ifft"] == 0, f"[9] K1 launched {counts}")
+
+    # the batch after the last swap against the CPU runtime, the same LUT
+    # file from the start, on the stream as released
+    n_batches = server.released
+    src = TcpServer(b"".join(chunks[:n_batches]))
+    try:
+        rt_cpu = ModRuntime(parse_ini(_live_ini(
+            d, "dpd_loop_cpu", f"tcp://127.0.0.1:{src.port}", "edi",
+            _dpd_chain_ini(lut_path), _loopback_ini(0))), device="cpu")
+        # the CPU run comes later on the wall clock than the stream's
+        # timestamps allow for: its loopback's clock stands before them
+        rt_cpu.output.device.get_real_secs = lambda: t0 - 1.0
+        keep = set(post)
+        ref = _record_dpd_device(rt_cpu.output.device, keep)
+        code = drive(rt_cpu, n_batches * nf, deadline_s=DPD_WAIT_S * 4)
+        rt_cpu.close()
+    finally:
+        src.close()
+    check(code == 0 and set(ref["frames"]) == keep
+          and rt_cpu.output.dropped == 0,
+          f"[9] the CPU runtime: exit {code}, {len(ref['frames'])} of the "
+          f"{len(keep)} TFs after the last swap")
+    worst, n_edge = _check_lut_frames(
+        {k: rec["frames"][k] for k in post}, ref["frames"], pairs, scale)
+    its = _iterations(events)
+    check(len(its) == DPD_POLY_ITERS + DPD_LUT_ITERS
+          and all({"align_s", "fit_s", "swap_s"} <= set(i) for i in its),
+          f"[9] timed iterations: {its}")
+    for i, (it, model) in enumerate(zip(its, ["poly"] * DPD_POLY_ITERS
+                                        + ["lut"] * DPD_LUT_ITERS)):
+        it["model"] = model
+        log(f"[9] iteration {i} ({model}) on {card}: wall "
+            f"{it['wall_s']:.3f} s = "
+            f"measure {it['measure_s']:.3f} + align {it['align_s']:.3f} + "
+            f"fit {it['fit_s']:.3f} + RC swap {it['swap_s']:.3f} s (+ the "
+            f"engine's sleeps)")
+    record = {
+        "card": card,
+        "input": "edi/tcp, released on demand", "output": "loopback",
+        "output_rate": s.output_rate, "batch_tf": BATCH_TF,
+        "launches": counts, "batches": n_batches,
+        "pa_peak": rec["peak"], "iterations": its,
+        "adapt_s": adapt_s, "adapt_frames": adapt_frames,
+        "adapt_frames_per_s": adapt_frames / adapt_s,
+        "poly": {"coefs_am": am.tolist(), "coefs_pm": pm.tolist(),
+                 "gain_0.1": gain_lo, "gain_0.6": gain_hi,
+                 "am_pm_0.7": am_pm, "hot_swaps": n_poly_swaps},
+        "lut": {"magnitude": mags.tolist(), "rebuilds": n_rebuild,
+                "hot_swaps": n_lut_swaps},
+        "cpu_frames_compared": len(keep), "max_err_over_tol": worst,
+        "lut_edge_samples": n_edge}
+    log(f"[9] dpd loop: the GUI (/, /api/rc, /api/stats, /api/signal of "
+        f"{sig['n_samples']} samples) and {DPD_POLY_ITERS} poly iterations "
+        f"through its DPD panel, then {DPD_LUT_ITERS} LUT iterations of "
+        f"run_engine, against the card runtime of realistic17_dpd_8m192 "
+        f"(PA peak {rec['peak']:.4f}); launches {counts}; poly: "
+        f"{n_poly_swaps} hot swaps, no rebuild, gain {gain_lo:.4f} at 0.1 "
+        f"-> {gain_hi:.4f} at 0.6, AM/PM {am_pm:.4f} rad at 0.7; LUT: "
+        f"{n_rebuild} rebuild, {n_lut_swaps} hot swap(s), |L| "
+        f"{mags[filled[0]]:.4f} -> {mags[filled[-1]]:.4f}; {n_batches} "
+        f"batches released, {adapt_frames} ETI frames modulated in the "
+        f"{adapt_s:.3f} s of adaptation ({adapt_frames / adapt_s:.1f} "
+        f"frames/s, the engine's demand; {card}); the {len(keep)} TFs "
+        f"after the "
+        f"last swap vs the CPU runtime: max err {worst:.4f} of the "
+        f"tolerance, {n_edge} samples at a LUT bin edge")
+    log(f"[9] dpd phase passed in {time.perf_counter() - t_phase:.1f} s")
+    return {"dpd_loop_8m192": record}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2129,24 +2707,25 @@ def main():
         phase_fixed_point(torch)
         runtime = phase_runtime(torch, steps)
         live = phase_live(torch)
+        dpd = phase_dpd(torch, card)
     finally:
         for d in _TMP:
             shutil.rmtree(d, ignore_errors=True)
-    # K1's launches in phase 6 and each kernel's in phases 7 and 8, beside
-    # those of the full-width paths of phase 4
+    # K1's launches in phase 6 and each kernel's in phases 7, 8 and 9,
+    # beside those of the full-width paths of phase 4
     kernels[0]["variant_launches"] = variant_launches["ofdm_ifft"]
     for k in kernels:
         base = "resample_poly" if k["name"].startswith("resample_poly") \
             else k["name"]
         k["runtime_launches"] = {
             ini: rec["launches"][base]
-            for ini, rec in (*runtime.items(), *live.items())
+            for ini, rec in (*runtime.items(), *live.items(), *dpd.items())
             if k.get("rate", 8_192_000) == rec["output_rate"]
             or base != "resample_poly"}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": card, "kernels": kernels,
                       "eager_stages": stages, "runtime": runtime,
-                      "live": live}), flush=True)
+                      "live": live, "dpd": dpd}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -33,16 +33,19 @@ def edi_seconds(posix: int, utco: int = UTCO) -> int:
     return posix - EDI_EPOCH - 32 + utco
 
 
-def edi_stream(frames: np.ndarray, t0: float, utco: int = UTCO) -> list:
+def edi_stream(frames: np.ndarray, t0: float, utco: int = UTCO,
+               start: int = 0) -> list:
     """One AF packet (bytes) for each raw ETI frame, carrying its FIC,
     sub-channels, FCT, FP and MNSC, and a timestamp of t0 (POSIX seconds)
-    plus 24 ms a frame."""
+    plus 24 ms a frame.  `start` is the index of frames[0] in a longer
+    stream that begins at t0: its packets continue that stream's
+    timestamps and AF sequence numbers."""
     sec0 = int(t0)
     tick0 = int(round((t0 - sec0) * PPS_HZ))
     packets = []
-    for t in range(len(frames)):
+    for t in range(start, start + len(frames)):
         # one frame at a time: the stream may change its layout
-        b = parse_eti_frames(frames[t:t + 1])
+        b = parse_eti_frames(frames[t - start:t - start + 1])
         ticks = tick0 + t * FRAME_TICKS
         ts = (utco, edi_seconds(sec0 + ticks // PPS_HZ, utco),
               ticks % PPS_HZ)
@@ -94,6 +97,60 @@ class TcpServer:
         self.srv.close()
         for c in self.conns:
             c.close()
+
+
+class ChunkServer:
+    """Serves the first connection it accepts one chunk (bytes) of
+    `chunks` each time release() is called, in order, and holds the
+    connection open until close(): a stream whose pace the caller sets.
+    `released` counts the chunks handed to the sender thread."""
+
+    def __init__(self, chunks):
+        self.chunks = chunks
+        self.released = 0
+        self.srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self.srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self.srv.bind(("127.0.0.1", 0))
+        self.srv.listen(1)
+        self.srv.settimeout(0.2)
+        self.port = self.srv.getsockname()[1]
+        self.conn = None
+        self._go = threading.Semaphore(0)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._serve, daemon=True)
+        self._thread.start()
+
+    def release(self) -> bool:
+        """Send the next chunk; False when every chunk has been released."""
+        if self.released >= len(self.chunks):
+            return False
+        self.released += 1
+        self._go.release()
+        return True
+
+    def _serve(self):
+        while self.conn is None and not self._stop.is_set():
+            try:
+                self.conn, _ = self.srv.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+        for chunk in self.chunks:
+            while not self._go.acquire(timeout=0.2):
+                if self._stop.is_set():
+                    return
+            try:
+                self.conn.sendall(chunk)
+            except OSError:
+                return
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.srv.close()
+        if self.conn is not None:
+            self.conn.close()
 
 
 def free_port() -> int:

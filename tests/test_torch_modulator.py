@@ -623,19 +623,24 @@ PORT_MODULES = ["dabmod_tpu_torch." + m for m in (
     "io.fic_decoder", "io.dexter_fft", "rc", "events", "timestamps",
     "utils", "ops.kiss_fixed", "io.rs", "io.edi", "io.sdr",
     "io.uhd_driver", "io.soapy_driver", "io.lime_driver",
-    "io.bladerf_driver", "io.dexter_driver")]
+    "io.bladerf_driver", "io.dexter_driver", "utils.racecheck",
+    "rc.client", "rc.yamlrpc", "dpd", "dpd.adapt", "dpd.agc", "dpd.align",
+    "dpd.dpdce", "dpd.extract_statistic", "dpd.globalconfig",
+    "dpd.heuristics", "dpd.measure", "dpd.mer", "dpd.model_lut",
+    "dpd.model_poly", "dpd.server", "dpd.shoulders", "gui")]
 
 
 def test_port_imports_no_jax():
     """Importing every module of dabmod_tpu_torch loads neither jax nor
     any module of dabmod_tpu, nor zmq or yaml (the card's machine has
-    neither: the ZeroMQ sink and the RC's ZeroMQ server import zmq when
-    they start)."""
+    neither: the ZeroMQ sink, the RC's ZeroMQ server and its client
+    import zmq when they start, and yamlrpc imports yaml where it
+    encodes and parses)."""
     code = (
         "import pkgutil, sys, importlib, dabmod_tpu_torch\n"
         "mods = [importlib.import_module(m.name) for m in pkgutil."
         "walk_packages(dabmod_tpu_torch.__path__, 'dabmod_tpu_torch.')]\n"
-        "assert len(mods) >= 35, mods\n"
+        "assert len(mods) >= 53, mods\n"
         f"missing = set({PORT_MODULES!r}) - set(m.__name__ for m in mods)\n"
         "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'zmq', "
