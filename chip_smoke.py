@@ -138,12 +138,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    a bin edge within the pre-DPD tolerance.  Prints each iteration's
    wall, split into measure, align, fit and RC swap, and the runtime's
    frames/s during the adaptation.
+10. The TF-sharded step (dabmod_tpu_torch/parallel/: ShardedModulator over
+   ranks spawned by parallel.launch.spawn, one process a rank, every
+   kernel built in this process first): realistic17_dpd_8m192 (phase 4's
+   chain and batches, K2 and K3) on 4 and on 2 gloo ranks sharing the
+   card (CUDA tensors), with a new poly coefficient set swapped in through
+   update_dpd between its two batches; main s16 at 2.048 MS/s on 2 gloo
+   ranks (K1, num_clipped summed over the ranks); realistic17_dpd_8m192
+   on 1 NCCL rank, and on 4 (one a card) where there are 4 cards.  Each
+   against the unsharded step on the card on the same batches (with the
+   same swap): compare_batch's tolerances, every rank's state (TI history,
+   res_carry, tf_index, mer_index) equal to the bit, each rank's kernel
+   launches (counted between a reset and a read around its run) its
+   kernels once a batch.  Prints which worlds ran over which backend, the
+   sharded step's host wall per run beside the unsharded step's, and the
+   collectives, buffer bytes and time of the exchanges inside the timed
+   steps (parallel.EXCHANGES: counted in exchange_tails, timed with CUDA
+   events around each) and their share of the step.  Ranks that share
+   one card measure correctness and the exchange's cost, not scaling.
 
 TF32 is switched off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False): every tolerance below assumes fp32
 arithmetic.  The line before the last is one JSON object with the kernels'
 numbers (and the eager stages' times and the runtime's, the live
-phase's and the DPD loop's records), labelled
+phase's, the DPD loop's and the sharded runs' records), labelled
 with the card's name and power limit; the last is
 {"ok": true, "device": {...}}.
 """
@@ -2680,6 +2698,274 @@ def phase_dpd(torch, card):
     return {"dpd_loop_8m192": record}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the TF-sharded step (dabmod_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+SHARD_BATCHES = 2            # consecutive batches, the state carried
+SHARD_TIMED = 10             # timed steps (and exchange sequences) a rank
+SHARD_TIMEOUT_S = 300.0      # each spawn, the ranks' start included
+# the poly coefficients swapped in before the second batch of the DPD chain
+SHARD_SWAP = ((0.95, 0.12, -0.04, 0.01, -0.005), (0.01, -0.02, 0.004,
+                                                  0.001, 0.0))
+
+
+def _shard_cases() -> dict:
+    """name -> (specs, settings extra, format, kernels it must launch,
+    poly coefficients swapped in before the second batch or None)."""
+    from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
+    return {
+        "realistic17_dpd_8m192": (
+            REALISTIC_MUX_SPECS,
+            dict(DPD_8M192, poly_coef_file=dpd_files()["poly"]), "uhd",
+            ("ofdm_cfr", "resample_poly"), SHARD_SWAP),
+        "main_s16": (REALISTIC_MUX_SPECS, {}, "s16", ("ofdm_ifft",), None)}
+
+
+def _shard_batches(specs):
+    """Phase 4's two batches of BATCH_TF TFs (the same seed)."""
+    from dabmod_tpu_torch.eti import parse_eti_frames, synth_eti_batch
+    frames = BATCH_TF * 4
+    raw = synth_eti_batch(SHARD_BATCHES * frames, mode=1, subch_specs=specs,
+                          seed=SEED)
+    return [parse_eti_frames(raw[k * frames:(k + 1) * frames])
+            for k in range(SHARD_BATCHES)]
+
+
+def _state_to_host(state) -> dict:
+    return {k: tuple(x.cpu().numpy() for x in v) if isinstance(v, tuple)
+            else v.cpu().numpy() for k, v in state.items()}
+
+
+def _timed_steps(torch, step, n, exchanges=None) -> list:
+    """Host wall ms of n calls of step(), each ended by a synchronise,
+    after two warm calls.  With `exchanges` (parallel.EXCHANGES): per
+    step (wall ms, collectives, all_reduce buffer bytes, exchange ms) as
+    exchange_tails counted and timed them inside that step."""
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        if exchanges is not None:
+            exchanges.reset(timing=True)
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        out.append(wall if exchanges is None else (
+            wall, exchanges.collectives, exchanges.buffer_bytes,
+            exchanges.ms()))
+    if exchanges is not None:
+        exchanges.reset()
+    return out
+
+
+def shard_rank(mesh, cases, timed):
+    """Phase 10 on one rank (run by parallel.launch.spawn): each case's two
+    global batches through ShardedModulator, the kernel launch counts and
+    exchange_tails' counts (parallel.EXCHANGES) set to 0 just before and
+    read just after, then `timed` steps, each between synchronises, with
+    the exchanges each made, counted and timed in exchange_tails.  Returns
+    per case this rank's outputs, states and stats (numpy), the counts
+    and the timed steps.  A failure raises: the launcher reports it with
+    the rank's traceback."""
+    import torch
+    import torch.distributed as dist
+    from dabmod_tpu_torch.models import Modulator, make_default_layout
+    from dabmod_tpu_torch.parallel import EXCHANGES, ShardedModulator
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = _kernels()
+    out = {}
+    for name, (specs, extra, fmt, _used, swap) in cases.items():
+        m = Modulator(make_default_layout(1, specs), _settings(fmt, **extra),
+                      device=mesh.device)
+        sm = ShardedModulator(m, mesh)
+        batches = _shard_batches(specs)
+        state, res = sm.init_state(), []
+        for k in kernels.values():
+            k.launches = 0
+        EXCHANGES.reset()
+        for i, b in enumerate(batches):
+            if i and swap and not m.update_dpd("poly", swap):
+                raise RuntimeError("[10] update_dpd refused the swap")
+            o, state, stats = sm.modulate(b.fic, b.subchannels, state)
+            res.append((_to_host(o), _state_to_host(state),
+                        {k: v.cpu().numpy() for k, v in stats.items()}))
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in kernels.items()}
+        path_exchanges = (EXCHANGES.collectives, EXCHANGES.buffer_bytes)
+        st = [state]
+        b = batches[0]
+
+        def step():
+            _, st[0], _ = sm.modulate(b.fic, b.subchannels, st[0])
+        dist.barrier()
+        out[name] = {"batches": res, "launches": counts,
+                     "path_exchanges": path_exchanges,
+                     "steps": _timed_steps(torch, step, timed, EXCHANGES),
+                     "device": str(mesh.device),
+                     "backend": dist.get_backend()}
+    return out
+
+
+def _shard_reference(torch, specs, extra, fmt, swap) -> dict:
+    """The unsharded step on the card on the same batches (with the same
+    swap): outputs, stats and states (numpy), the CFR threshold margins,
+    tf_samples_out and the step's host wall ms (the same calls as a
+    rank's)."""
+    from dabmod_tpu_torch.models import Modulator, make_default_layout
+    from dabmod_tpu_torch.ops import ofdm_kernel
+    m = Modulator(make_default_layout(1, specs), _settings(fmt, **extra),
+                  device="cuda")
+    batches = _shard_batches(specs)
+    state, res, margins = m.init_state(), [], []
+    for i, b in enumerate(batches):
+        if i and swap:
+            check(m.update_dpd("poly", swap), "[10] update_dpd refused")
+        if m.settings.enable_cfr:
+            syms, _ = m.ofdm_symbols(b.fic, b.subchannels,
+                                     state["ti_history"], state["tf_index"])
+            margins.append(ofdm_kernel.cfr_threshold_margin(
+                syms, m._ofdm_table, m.settings.cfr_clip,
+                m.settings.cfr_error_clip, rel=MARGIN_REL).sum(dim=1)
+                .cpu().numpy())
+        o, state, stats = m.modulate_eti(b, state)
+        res.append((_to_host(o), _state_to_host(state),
+                    {k: v.cpu().numpy() for k, v in stats.items()}))
+    st = [state]
+    b = batches[0]
+
+    def step():
+        _, st[0], _ = m.modulate(b.fic, b.subchannels, st[0])
+    return {"batches": res, "margins": margins or None,
+            "n_out": m.tf_samples_out,
+            "step_ms": _timed_steps(torch, step, SHARD_TIMED)}
+
+
+def _check_shard_run(tag, ref, ranks, fmt, used, world):
+    """One case of one spawn against the unsharded step: each batch's
+    output and stats (compare_batch), every rank's state equal to the
+    bit, each rank's launches (its kernels once a batch, no other)."""
+    rel = DPD_REL if fmt == "uhd" else 3e-5
+    for k, (c, cstate, cs) in enumerate(ref["batches"]):
+        parts = [r["batches"][k] for r in ranks]
+        g = (tuple(np.concatenate([p[0][j] for p in parts]) for j in (0, 1))
+             if fmt == "uhd" else np.concatenate([p[0] for p in parts]))
+        gs = {key: (parts[0][2][key] if key == "num_clipped"
+                    else np.concatenate([p[2][key] for p in parts]))
+              for key in parts[0][2]}
+        if "num_clipped" in gs:
+            check(all(int(p[2]["num_clipped"]) == int(gs["num_clipped"])
+                      for p in parts),
+                  f"{tag}: num_clipped differs between ranks")
+        compare_batch(f"{tag} batch {k}", fmt, g, gs, c, cs, ref["n_out"],
+                      ref["margins"][k] if ref["margins"] else None, rel)
+        for r, p in enumerate(parts):
+            for key, v in cstate.items():
+                got = p[1].get(key)
+                same = got is not None and all(
+                    np.array_equal(a, b) for a, b in zip(
+                        *(x if isinstance(x, tuple) else (x,)
+                          for x in (got, v))))
+                check(same, f"{tag} batch {k}: rank {r}'s {key} is not the "
+                      f"unsharded step's")
+    for r, rec in enumerate(ranks):
+        want = {kn: SHARD_BATCHES if kn in used else 0
+                for kn in rec["launches"]}
+        check(rec["launches"] == want, f"{tag}: rank {r} launched "
+              f"{rec['launches']}, not {want}")
+    log(f"    {tag}: every rank's state equal to the bit; launches a rank "
+        f"{ranks[0]['launches']} (world {world})")
+
+
+def phase_sharded(torch, card):
+    """Phase 10: ShardedModulator over ranks spawned on the card; see the
+    module docstring.  Returns the phase's record."""
+    from dabmod_tpu_torch.ops import build
+    from dabmod_tpu_torch.parallel.launch import spawn
+    t_phase = time.perf_counter()
+    # every kernel is built before the ranks start, so that no two ranks
+    # run nvcc at once (a no-op after phase 1)
+    build.build(*build.SOURCES)
+    cases = _shard_cases()
+    refs = {name: _shard_reference(torch, specs, extra, fmt, swap)
+            for name, (specs, extra, fmt, _u, swap) in cases.items()}
+    store = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    _TMP.append(store)
+    runs = [("gloo", 4, ("realistic17_dpd_8m192",)),
+            ("gloo", 2, ("realistic17_dpd_8m192", "main_s16")),
+            ("nccl", 1, ("realistic17_dpd_8m192",))]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 4:
+        runs.append(("nccl", 4, ("realistic17_dpd_8m192",)))
+    log(f"[10] sharded runs on {n_cards} card(s): " + "; ".join(
+        f"world {w} over {b} ({', '.join(names)})" for b, w, names in runs))
+    record = {"card": card, "cards": n_cards, "runs": []}
+    for backend, world, names in runs:
+        t0 = time.perf_counter()
+        res = spawn(shard_rank, world, backend=backend, device="cuda",
+                    store_path=store, timeout_s=SHARD_TIMEOUT_S,
+                    args=({n: cases[n] for n in names}, SHARD_TIMED))
+        wall = time.perf_counter() - t0
+        for name in names:
+            _specs, _extra, fmt, used, _swap = cases[name]
+            ranks = [r[name] for r in res]
+            check(all(r["backend"] == backend for r in ranks),
+                  f"[10] {name}: the ranks ran on "
+                  f"{[r['backend'] for r in ranks]}, not {backend}")
+            tag = f"[10] {name} world {world} ({backend})"
+            _check_shard_run(tag, refs[name], ranks, fmt, used, world)
+            # every rank's timed steps: (wall ms, collectives, buffer
+            # bytes, exchange ms), the exchanges counted in exchange_tails
+            made = {s[1:3] for r in ranks for s in r["steps"]}
+            check(len(made) == 1, f"{tag}: the steps made different "
+                  f"exchanges: {sorted(made)}")
+            collectives, ex_bytes = made.pop()
+            check(all(r["path_exchanges"] == (SHARD_BATCHES * collectives,
+                                              SHARD_BATCHES * ex_bytes)
+                      for r in ranks),
+                  f"{tag}: the main path's exchanges "
+                  f"{[r['path_exchanges'] for r in ranks]} are not "
+                  f"{SHARD_BATCHES} timed steps'")
+            walls = [s[0] for s in ranks[0]["steps"]]
+            step = statistics.median(walls)
+            ex = statistics.median(s[3] for s in ranks[0]["steps"])
+            share = statistics.median(s[3] / s[0] for s in ranks[0]["steps"])
+            launches = {k: sum(r["launches"][k] for r in ranks)
+                        for k in ranks[0]["launches"]}
+            run = {"case": name, "world": world, "backend": backend,
+                   "devices": [r["device"] for r in ranks],
+                   "step_ms": step,
+                   "step_ms_range": [min(walls), max(walls)],
+                   "unsharded_step_ms": statistics.median(
+                       refs[name]["step_ms"]),
+                   "exchange_ms": ex, "exchange_share": share,
+                   "exchange_ms_ranks": [
+                       statistics.median(s[3] for s in r["steps"])
+                       for r in ranks],
+                   "exchange_collectives": collectives,
+                   "exchange_buffer_bytes": ex_bytes,
+                   "exchange_bytes_per_rank": ex_bytes // world,
+                   "launches": launches, "spawn_s": wall}
+            record["runs"].append(run)
+            log(f"[10] {name} world {world} over {backend} on "
+                f"{', '.join(sorted(set(run['devices'])))} ({card}): step "
+                f"{step:.3f} ms (host wall, median of {SHARD_TIMED}; "
+                f"unsharded {run['unsharded_step_ms']:.3f} ms), "
+                f"{run['exchange_collectives']} all_reduce a step, "
+                f"{ex_bytes} B of buffers ({ex_bytes // world} B from each "
+                f"rank), {ex:.3f} ms of the step in them ({100 * share:.1f} "
+                f"%; counted and timed in exchange_tails, CUDA events "
+                f"around each); spawn {wall:.1f} s"
+                + ("; ranks that share a card measure correctness and "
+                   "exchange cost, not scaling"
+                   if len(set(run["devices"])) < world else ""))
+    log(f"[10] sharded phase passed in {time.perf_counter() - t_phase:.1f} s")
+    return record
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2708,10 +2994,11 @@ def main():
         runtime = phase_runtime(torch, steps)
         live = phase_live(torch)
         dpd = phase_dpd(torch, card)
+        sharded = phase_sharded(torch, card)
     finally:
         for d in _TMP:
             shutil.rmtree(d, ignore_errors=True)
-    # K1's launches in phase 6 and each kernel's in phases 7, 8 and 9,
+    # K1's launches in phase 6 and each kernel's in phases 7, 8, 9 and 10,
     # beside those of the full-width paths of phase 4
     kernels[0]["variant_launches"] = variant_launches["ofdm_ifft"]
     for k in kernels:
@@ -2722,10 +3009,18 @@ def main():
             for ini, rec in (*runtime.items(), *live.items(), *dpd.items())
             if k.get("rate", 8_192_000) == rec["output_rate"]
             or base != "resample_poly"}
+        # phase 10's launches, summed over the ranks of each run (K3 runs
+        # there at 8.192 MS/s only)
+        k["sharded_launches"] = {
+            f"{run['case']}@{run['backend']}x{run['world']}":
+            run["launches"][base] for run in sharded["runs"]
+            if k.get("rate", 8_192_000) == 8_192_000
+            or base != "resample_poly"}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"card": card, "kernels": kernels,
                       "eager_stages": stages, "runtime": runtime,
-                      "live": live, "dpd": dpd}), flush=True)
+                      "live": live, "dpd": dpd, "sharded": sharded}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -407,23 +407,23 @@ class Modulator:
                                device=self.device)
 
     # ------------------------------------------------------------------
-    def _frontend_impl(self, fic_bytes, subch_bytes, ti_history):
+    def _frontend_impl(self, fic_bytes, subch_bytes, ti_history,
+                       time_interleave=fec.time_interleave_all):
         """Bit-domain FEC + carrier mapping: ETI payload bytes ->
         differential-modulated carrier symbols [B, nb_symbols, C] in
-        interleaver-input order (see the deferred-FI note in __init__)."""
+        interleaver-input order (see the deferred-FI note in __init__).
+        `time_interleave` takes every sub-channel's punctured rows and
+        histories at once (parallel.ShardedModulator passes its
+        minimal-halo form)."""
         p = self.p
         fic_bits = fec.unpack_bits(fic_bytes)
         fic_out = fec.fec_path(fic_bits, self._fic_prbs, self._fic_nbits,
                                *self._fic_punct)
-        cif_parts = []
-        new_hist = []
-        for i in range(len(self.layout.subchannels)):
-            bits = fec.unpack_bits(subch_bytes[i])
-            pb = fec.fec_path(bits, self._subch_prbs[i], self._subch_nbits[i],
-                              *self._subch_punct[i])
-            ti, h = fec.time_interleave(pb, ti_history[i])
-            cif_parts.append(ti)
-            new_hist.append(h)
+        punctured = [
+            fec.fec_path(fec.unpack_bits(subch_bytes[i]), self._subch_prbs[i],
+                         self._subch_nbits[i], *self._subch_punct[i])
+            for i in range(len(self.layout.subchannels))]
+        cif_parts, new_hist = time_interleave(punctured, ti_history)
         cif = fec.assemble_cif(cif_parts, self._subch_offsets,
                                self._cif_filler)
         tf_bits = fec.block_partition(fic_out, cif, p.cif_count)
@@ -448,7 +448,7 @@ class Modulator:
                       for x in syms), new_hist)
 
     def _ofdm_symbols_impl(self, fic_bytes, subch_bytes, ti_history,
-                           tf_index):
+                           tf_index, time_interleave=fec.time_interleave_all):
         """The front end and the NULL symbol ahead of each TF, with TII in
         every other TF's NULL symbol and the CIC taps applied: the OFDM
         backend's input [B, S, C] (interleaver-input order) and the new
@@ -456,7 +456,7 @@ class Modulator:
         p = self.p
         B = fic_bytes.shape[0] // p.cif_count
         data_syms, new_hist = self._frontend_impl(
-            fic_bytes, subch_bytes, ti_history)               # [B, 76, C]
+            fic_bytes, subch_bytes, ti_history, time_interleave)  # [B, 76, C]
         if self._tii_vec is not None:
             # TII in the NULL symbol of the TFs with an even index
             # (ref: src/TII.cpp:241-243)
@@ -578,12 +578,18 @@ class Modulator:
         return iq[1] * 65536 + (iq[0] & 0xFFFF)
 
     def _modulate_impl(self, fic_bytes, subch_bytes, state,
-                       constant_gain: float, var_k: float, rp: dict):
+                       constant_gain: float, var_k: float, rp: dict,
+                       time_interleave=fec.time_interleave_all,
+                       resample=None):
+        """One batch (see modulate).  `time_interleave` and `resample`
+        (default self._resample) are the step's TF couplings:
+        parallel.ShardedModulator passes their sharded forms."""
         p = self.p
         s = self.settings
+        resample = resample or self._resample
         symbols, new_hist = self._ofdm_symbols_impl(
             fic_bytes, subch_bytes, state["ti_history"],
-            state["tf_index"])                                # [B, S, C]
+            state["tf_index"], time_interleave)               # [B, S, C]
         B = symbols[0].shape[0]
         new_state = {"ti_history": new_hist,
                      "tf_index": state["tf_index"] + B}
@@ -625,7 +631,7 @@ class Modulator:
             self._t("fir", iq)
 
         if self._res_route is not None:
-            iq = self._resample(iq, state, new_state)
+            iq = resample(iq, state, new_state)
             self._t("resampler", iq)
 
         if "poly_am" in rp:
@@ -673,14 +679,17 @@ class Modulator:
         if fic.shape[0] % self.p.cif_count:
             raise ValueError(f"{fic.shape[0]} ETI frames is not a multiple "
                              f"of {self.p.cif_count} CIFs per TF")
-        s = self.settings
-        # float32 scalars, as dabmod_tpu passes them (jnp.float32)
-        constant_gain = float(np.float32(s.normalise * s.digital_gain))
-        var_k = float(np.float32(s.gain_mode_variance))
         with torch.no_grad():
             return self._modulate_impl(
                 fic, tuple(self._bytes(x) for x in subch_bytes), state,
-                constant_gain, var_k, self._runtime_params)
+                *self._gain_args(), self._runtime_params)
+
+    def _gain_args(self) -> tuple[float, float]:
+        """The step's gain scalars (constant gain, var_k) from the live
+        settings, float32 values as dabmod_tpu passes them (jnp.float32)."""
+        s = self.settings
+        return (float(np.float32(s.normalise * s.digital_gain)),
+                float(np.float32(s.gain_mode_variance)))
 
     def modulate_eti(self, batch: EtiFrameBatch, state):
         """Convenience: modulate a parsed ETI batch."""

@@ -115,6 +115,14 @@ def time_interleave(bits: torch.Tensor, history: torch.Tensor
     return out, full[-15:].clone()
 
 
+def time_interleave_all(bits: list[torch.Tensor], histories
+                        ) -> tuple[list[torch.Tensor], tuple]:
+    """time_interleave of every sub-channel of a batch: bits [T, n_i] and
+    histories [15, n_i] a sub-channel -> (outputs, new histories)."""
+    pairs = [time_interleave(b, h) for b, h in zip(bits, histories)]
+    return [out for out, _ in pairs], tuple(h for _, h in pairs)
+
+
 def assemble_cif(subch_bits: list[torch.Tensor], offsets_bits: list[int],
                  filler_bits: torch.Tensor) -> torch.Tensor:
     """Overlay sub-channel frames into the 864-CU CIF over the PRBS filler

@@ -859,3 +859,63 @@ def test_tcp_eti_into_s16_sdr_on_card_equals_cpu(card, monkeypatch):
         assert g.dtype == r.dtype == np.int32
         d = np.abs(g.view(np.int16).astype(np.int32) - r.view(np.int16))
         assert d.max() <= 1
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_card_equals_unsharded(card, tmp_path):
+    """Two gloo ranks sharing the card (parallel.launch.spawn on
+    tests/torch_sharding_ranks.py), two batches of 8 TFs: the DPD chain
+    (TII, CFR 30/0.1, window 10, default FIR, 4.096 MS/s through K3, poly
+    DPD) and s16 at 2.048 MS/s (K1), against the unsharded step on the
+    card: f32 within 1e-4*max|ref|, s16 within 1 LSB with equal
+    num_clipped, clip counts equal, the state equal on every rank; each
+    rank launches its kernels once a batch."""
+    import torch_sharding_ranks as R
+    from dabmod_tpu_torch.parallel.launch import spawn
+    coef = tmp_path / "poly.coef"
+    coef.write_text("1\n5\n1.0\n0.1\n-0.05\n0.02\n-0.01\n"
+                    "0.02\n-0.01\n0.005\n0.0\n0.0\n")
+    chain = ModSettings(
+        dab_mode=1, tii_enable=True, tii_comb=5, tii_pattern=31,
+        enable_cfr=True, cfr_clip=30.0, cfr_error_clip=0.1,
+        ofdm_window_overlap=10, filter_taps_file="default",
+        output_rate=4_096_000, poly_coef_file=str(coef), output="uhd",
+        device_interleave=False).normalise_for_output()
+    s16 = ModSettings(dab_mode=1, output="file",
+                      file_output_format="s16").normalise_for_output()
+    settings = (chain, s16)
+    res = spawn(R.modulate_streams, 2, backend="gloo", device="cuda",
+                store_path=str(tmp_path / "store"), timeout_s=300,
+                args=([(s, BENCH_SPECS, 11, None) for s in settings],))
+    # launches of (K1, K2, K3) over the two batches, on each rank
+    for ci, (s, launches) in enumerate(zip(settings, ((0, 2, 2),
+                                                      (2, 0, 0)))):
+        m = R.make_modulator(s, device=card)
+        state = m.init_state()
+        for k, b in enumerate(R.eti_batches(1, BENCH_SPECS, 11)):
+            out, state, stats = m.modulate_eti(b, state)
+            ref, ref_state, stats = R.to_numpy((out, state, stats))
+            parts = [r[ci]["batches"][k] for r in res]
+            if s.output == "uhd":
+                for j in (0, 1):
+                    got = np.concatenate([p[0][j] for p in parts])
+                    np.testing.assert_allclose(
+                        got, ref[j], rtol=0, atol=1e-4 * np.abs(ref[j]).max())
+            else:
+                got = np.concatenate([p[0] for p in parts])
+                d = np.abs(got.view(np.int16).astype(np.int32)
+                           - ref.view(np.int16))
+                assert d.max() <= 1
+            for key, v in stats.items():
+                g = (parts[0][2][key] if key == "num_clipped" else
+                     np.concatenate([p[2][key] for p in parts]))
+                if key in ("cfr_clip", "cfr_errclip", "num_clipped",
+                           "mer_valid"):
+                    np.testing.assert_array_equal(g, v)
+            for p in parts:
+                for key, v in ref_state.items():
+                    for a, x in zip(*(y if isinstance(y, tuple) else (y,)
+                                      for y in (p[1][key], v))):
+                        np.testing.assert_array_equal(a, x)
+        for r in res:
+            assert r[ci]["launches"] == list(launches)

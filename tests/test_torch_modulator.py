@@ -436,8 +436,8 @@ def _a10b_run(pkg, kw, frames, tmp_path, monkeypatch):
     device got, as (fct, timestamp fields, array), the SDR counters and
     `sdr` RC values, or None)."""
     import threading
-    from live_stream import (TcpServer, drive, edi_stream, free_port,
-                             record_sink, record_transmit, send_udp)
+    from live_stream import (TcpServer, drive, edi_stream, record_sink,
+                             record_transmit, send_udp)
     eti = tmp_path / "in.eti"
     eti.write_bytes(frames.tobytes())
     srv = TcpServer(frames.tobytes())
@@ -449,7 +449,10 @@ def _a10b_run(pkg, kw, frames, tmp_path, monkeypatch):
                            "file_output_format": "s16", "batch_tf": 2,
                            "tcp_timeout": 0.3, **kw})
     if out == "zmq":
-        s.output_name = f"tcp://127.0.0.1:{free_port()}"
+        # the sink binds a port the system picks (read back below): a port
+        # picked here and bound later could be taken in between by another
+        # test process
+        s.output_name = "tcp://127.0.0.1:*"
         s.zmq_output_socket_type = "rep"
     if out not in ("file", "zmq", "loopback"):
         _fake_vendor(pkg, out, monkeypatch)
@@ -466,10 +469,11 @@ def _a10b_run(pkg, kw, frames, tmp_path, monkeypatch):
             udp, edi_stream(frames, 1_800_000_000.0))).start
     if out == "zmq":
         import zmq
+        endpoint = rt.output.sock.getsockopt_string(zmq.LAST_ENDPOINT)
 
         def consumer():
             sock = zmq.Context.instance().socket(zmq.REQ)
-            sock.connect(s.output_name)
+            sock.connect(endpoint)
             sock.setsockopt(zmq.RCVTIMEO, 10000)
             sock.setsockopt(zmq.LINGER, 0)
             try:
@@ -478,7 +482,8 @@ def _a10b_run(pkg, kw, frames, tmp_path, monkeypatch):
                     received.append(sock.recv())
             finally:
                 sock.close()
-        before = threading.Thread(target=consumer, daemon=True).start
+        reader = threading.Thread(target=consumer, daemon=True)
+        before = reader.start
     try:
         if getattr(rt.reader, "never_eof", False):
             assert drive(rt, 16, deadline_s=30, before=before) == 0
@@ -495,6 +500,10 @@ def _a10b_run(pkg, kw, frames, tmp_path, monkeypatch):
         for arr, meta in calls:
             tfs += [(f, ts, arr[i]) for i, (f, ts) in enumerate(meta)]
         if out == "zmq":
+            # the consumer takes the last reply after the sink has sent it,
+            # and may not have it yet when the runtime has stopped
+            reader.join(timeout=10)
+            assert not reader.is_alive()
             assert len(b"".join(received)) == sum(
                 a.nbytes for _, _, a in tfs)
     else:
@@ -617,7 +626,8 @@ def test_inactive_cic_rate_is_accepted():
     assert m.device.type == "cpu"
 
 
-# the modules the runtime and the fixed-point engines brought in
+# the modules the runtime, the fixed-point engines, the DPD control plane
+# and the sharded step brought in
 PORT_MODULES = ["dabmod_tpu_torch." + m for m in (
     "runtime", "cli", "config", "io.readers", "io.outputs",
     "io.fic_decoder", "io.dexter_fft", "rc", "events", "timestamps",
@@ -627,7 +637,8 @@ PORT_MODULES = ["dabmod_tpu_torch." + m for m in (
     "rc.client", "rc.yamlrpc", "dpd", "dpd.adapt", "dpd.agc", "dpd.align",
     "dpd.dpdce", "dpd.extract_statistic", "dpd.globalconfig",
     "dpd.heuristics", "dpd.measure", "dpd.mer", "dpd.model_lut",
-    "dpd.model_poly", "dpd.server", "dpd.shoulders", "gui")]
+    "dpd.model_poly", "dpd.server", "dpd.shoulders", "gui", "parallel",
+    "parallel.sharding", "parallel.launch")]
 
 
 def test_port_imports_no_jax():
@@ -640,7 +651,7 @@ def test_port_imports_no_jax():
         "import pkgutil, sys, importlib, dabmod_tpu_torch\n"
         "mods = [importlib.import_module(m.name) for m in pkgutil."
         "walk_packages(dabmod_tpu_torch.__path__, 'dabmod_tpu_torch.')]\n"
-        "assert len(mods) >= 53, mods\n"
+        "assert len(mods) >= 56, mods\n"
         f"missing = set({PORT_MODULES!r}) - set(m.__name__ for m in mods)\n"
         "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'zmq', "
