@@ -55,12 +55,26 @@ Phases, in order; any failure exits non-zero and prints no result:
      coefficients, written as a format-1 file in a temporary directory),
      f32 planes at the UHD scale (1/50000), within 1e-4*max|ref| of the
      CPU after the DPD.
-   Each path's kernel launch counts are set to 0 just before its card run
-   and read just after; a kernel's launches are summed over its paths.
+   On the card Modulator.modulate replays a CUDA graph of the step
+   (dabmod_tpu_torch/models/compiled.py), captured at a modulator's first
+   batch after one eager warm-up; every output, stat and state tensor of
+   the card's run is held against the eager step (Modulator._modulate_impl)
+   on the card on the same batches, to the bit.  Each path's kernel launch
+   counts are set to 0 just before its card run and read just after: the
+   wrappers count where they launch, so they count each graph's warm-up
+   and capture and no replay.  The card run is traced (torch.profiler):
+   the trace's launches of each kernel must equal the warm-ups' plus each
+   graph's at each of its replays.  A kernel's launches, counted and on
+   the card, are summed over its paths.
 5. Times on the card (CUDA events, warm-up, median of 25 runs): each path's
-   step time (with its quartiles), the host's time to issue a step in the
-   same runs, samples/s at the output rate and a torch.profiler breakdown
-   in each of its formats; each kernel (20 back-to-back calls a run, cycling
+   step, the eager step (Modulator._modulate_impl) and the captured step
+   (Modulator.modulate: inputs copied in, the graph replayed, its outputs
+   cloned) in one process, each with its quartiles and range, the host's
+   time to issue a step in the same runs, samples/s at the output rate and
+   a torch.profiler breakdown, in each of its formats; the wall of the
+   first step (warm-up, capture, replay), the device memory the graph
+   holds after it (the caching allocator's, unused blocks released before
+   and after) and the time to clone a step's outputs; each kernel (20 back-to-back calls a run, cycling
    through input sets larger than L2 together, and again on one input
    set; the card spins in torch.cuda._sleep while the host issues the
    calls, so the events see device time only, and the host's issue time
@@ -78,16 +92,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    the frequency-domain resampler at 1.536 MS/s ("auto") and 4.096 MS/s
    ("fft"), the plain polyphase form at 2.5 MS/s (K3 launched no time),
    TII's old variant in TM II, the windowed guard interval in TM II-IV,
-   modulate_traced's stage dumps of the DPD chain, and a hot swap of FIR
-   taps and poly coefficients between two batches against a modulator
-   built with the new ones.  K1's launches in these runs are counted.
+   modulate_traced's stage dumps of the DPD chain (the eager step), and a
+   hot swap of FIR taps and poly coefficients with a digital gain change
+   between two replays of one graph against a modulator built with the new
+   values on the same state.  Each variant's card run is also held against
+   the eager step on the card, to the bit.  K1's launches in these runs
+   are counted (the warm-up and the capture a variant) and traced (the
+   warm-up and two replays).
 7. The fixed-point engines and the port as a program:
    * fft_engine=kiss at overlap 0 and 90 on the golden payloads, card ==
      CPU == the reference's goldens e2e_iq_fixed / e2e_iq_fixed_ov90, bit
      for bit; TM II-IV at 2 TFs, card == CPU bit for bit;
    * fft_engine=dexter in TM I and TM III at overlap 0 and 12: the card's
-     Q1.14 symbols and the host chain's wire words == the CPU's;
-   * the runtime in-process on the card (ModRuntime, the 17-sub-channel
+     Q1.14 symbols and the host chain's wire words == the CPU's; both
+     engines' captured steps == their eager steps on the card;
+   * the runtime in-process on the card (ModRuntime, its steps replaying
+     the modulator's graphs as in phases 8 and 9, the 17-sub-channel
      ensemble, batch_tf=24, an ETI file of 4 batches, the file sink), for
      three INI files read with parse_ini: (a) s16 at 2.048 MS/s (K1),
      (b) CFR 40/3 at 8.192 MS/s, complexf (K2, K3), (c) kiss, s16; the
@@ -117,6 +137,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    equal to the frame sent under its timestamp, and RX = gain*TX.
    (e) also: the pinned host memory Python references before and after
    the run, and the batch buffers the SDR queue's frames held at most.
+   (f) partial batches: ETI over TCP with tcp_timeout=0.25 into (e)'s
+   sink, its device replaced by one that plays each frame for a TF's time
+   (96 ms) and counts an underflow where a frame comes after the one
+   before has ended; the stream sends 24, 24, 5, 24 and 5 TFs, each once
+   the one before is modulated, so each 5-TF chunk goes out as a partial
+   batch at the read's timeout: the first captures a graph, the second
+   replays it.  Each modulate call's wall (a capture's with the device
+   memory it left held), the underflows by batch, the SDR counters
+   adding up to the TFs sent.
 9. The DPD control plane against the card (dabmod_tpu_torch/dpd/, gui.py;
    ModRuntime in a thread on realistic17_dpd_8m192's INI with the telnet
    RC, EDI over TCP released a batch at a time whenever the feedback
@@ -145,8 +174,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    card (CUDA tensors), with a new poly coefficient set swapped in through
    update_dpd between its two batches; main s16 at 2.048 MS/s on 2 gloo
    ranks (K1, num_clipped summed over the ranks); realistic17_dpd_8m192
-   on 1 NCCL rank, and on 4 (one a card) where there are 4 cards.  Each
-   against the unsharded step on the card on the same batches (with the
+   on 1 NCCL rank, and on 4 (one a card) where there are 4 cards.  The
+   sharded step runs eagerly.  Each against the unsharded step on the card
+   (Modulator.modulate, the captured graph) on the same batches (with the
    same swap): compare_batch's tolerances, every rank's state (TI history,
    res_carry, tf_index, mer_index) equal to the bit, each rank's kernel
    launches (counted between a reset and a read around its run) its
@@ -160,8 +190,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 TF32 is switched off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False): every tolerance below assumes fp32
 arithmetic.  The line before the last is one JSON object with the kernels'
-numbers (and the eager stages' times and the runtime's, the live
-phase's, the DPD loop's and the sharded runs' records), labelled
+numbers (and phase 5's steps, the eager stages' times and the runtime's,
+the live phase's, the DPD loop's and the sharded runs' records), labelled
 with the card's name and power limit; the last is
 {"ok": true, "device": {...}}.
 """
@@ -731,6 +761,99 @@ def _kernels():
             "resample_poly": resampler_kernel.resample}
 
 
+def _bits(tree) -> list:
+    """The tensors of a step's (output, stats, state) on the host, in
+    pytree order."""
+    from torch.utils._pytree import tree_leaves
+    return [x.cpu().numpy() for x in tree_leaves(tree)]
+
+
+def _same_bits(got, want) -> bool:
+    return len(got) == len(want) and all(
+        a.dtype == b.dtype and a.shape == b.shape
+        and a.tobytes() == b.tobytes() for a, b in zip(got, want))
+
+
+def eager_bits(torch, m, batches) -> list:
+    """The eager step (Modulator._modulate_impl, no graph) of modulator m
+    on the card over `batches` ((fic, subchannels) pairs), the state
+    carried from init_state: _bits of each step.  Its kernel launches are
+    the comparison's and are not counted: callers read the counts
+    before."""
+    state, res = m.init_state(), []
+    for fic, subch in batches:
+        with torch.no_grad():
+            out, state, stats = m._modulate_impl(
+                *m._batch(fic, subch), state, *m._gain_args(),
+                m._apply_swaps())
+        res.append(_bits((out, stats, state)))
+    return res
+
+
+def check_captured(tag, captured, eager):
+    """The replayed graphs' steps against the eager steps: every output,
+    stat and state tensor equal to the bit."""
+    check(all(_same_bits(g, w) for g, w in zip(captured, eager))
+          and len(captured) == len(eager),
+          f"{tag}: the captured step differs from the eager step")
+
+
+# each counted kernel's __global__ function, as a device trace names it
+KERNEL_SYMBOLS = {"ofdm_ifft_kernel": "ofdm_ifft",
+                  "ofdm_cfr_kernel": "ofdm_cfr",
+                  "resample_poly": "resample_poly"}
+
+
+def _kernel_of(event_name: str) -> str:
+    """A device event's function name without its namespace, template
+    arguments and parameters."""
+    name = event_name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
+
+
+def traced_launches(torch, fn):
+    """fn() under torch.profiler, the card synchronised before and after:
+    (its result, each counted kernel's launches on the card in the trace,
+    keyed as _kernels()).  Fails where the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(len(dev) > 0, "torch.profiler traced no device event: the "
+          "launches on the card are not measured")
+    out = dict.fromkeys(KERNEL_SYMBOLS.values(), 0)
+    for e in dev:
+        k = KERNEL_SYMBOLS.get(_kernel_of(e.name))
+        if k is not None:
+            out[k] += 1
+    return res, out
+
+
+def check_graph_launches(tag, mods, counts, traced):
+    """The launches of modulators `mods`' steps on the card.  The wrappers
+    count a graph's warm-up and its capture (whose count is the graph's
+    Captured.launches: the warm-up runs the same step); the trace must hold
+    the warm-up's launches and the graph's at each of its replays.  Eager
+    steps (no graph) launch what the wrappers count."""
+    names = {f.__name__: k for k, f in _kernels().items()}
+    graphs = [cap for m in mods for cap in m.compiled.graphs.values()]
+    calls, on_card = dict.fromkeys(counts, 0), dict.fromkeys(counts, 0)
+    for cap in graphs:
+        for wrapper, n in cap.launches.items():
+            calls[names[wrapper]] += 2 * n
+            on_card[names[wrapper]] += (1 + cap.replays) * n
+    if not graphs:
+        calls = on_card = counts
+    check(counts == calls, f"{tag}: the wrappers counted {counts}, not "
+          f"each graph's warm-up and capture {calls}")
+    check(traced == on_card, f"{tag}: launches on the card (trace) "
+          f"{traced}, not the warm-ups' and the replays' {on_card}")
+
+
 def _paths():
     """Each path: (ensembles, settings, kernels it must launch, formats)."""
     from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
@@ -753,14 +876,18 @@ def _paths():
 def phase_paths(torch):
     """Each path: two consecutive batch_tf=24 batches per (ensemble,
     format) on the card, state carried, against the port on the CPU on the
-    same ETI.  Returns each kernel's launch count, summed over the card
-    runs of the paths that use it, and each path's counts."""
+    same ETI, and against the eager step on the card (no graph) to the
+    bit.  The wrappers count each graph's warm-up and capture; a
+    torch.profiler trace of the card's run counts the launches on the card
+    (the warm-ups and the replays).  Returns each kernel's count, summed
+    over the card runs of the paths that use it, each path's counts and
+    each path's launches on the card."""
     from dabmod_tpu_torch.eti import parse_eti_frames, synth_eti_batch
     from dabmod_tpu_torch.models import Modulator, make_default_layout
     from dabmod_tpu_torch.ops import ofdm_kernel
 
     kernels = _kernels()
-    launches, per_path = {}, {}
+    launches, per_path, on_card = {}, {}, {}
     for path, (ensembles, extra, used, fmts) in _paths().items():
         cases = []
         for name, specs in ensembles:
@@ -773,12 +900,12 @@ def phase_paths(torch):
                 cases.append((name, specs, fmt, batches))
 
         def drive(device):
-            outs, margins = {}, {}
+            outs, margins, mods = {}, {}, {}
             for name, specs, fmt, batches in cases:
                 m = Modulator(make_default_layout(1, specs),
                               _settings(fmt, **extra), device=device)
                 state = m.init_state()
-                res, marg = [], []
+                res, marg, bits = [], [], []
                 for b in batches:
                     if device == "cpu" and m.settings.enable_cfr:
                         # the samples of the plain CFR at a threshold
@@ -792,29 +919,48 @@ def phase_paths(torch):
                     out, state, stats = m.modulate_eti(b, state)
                     res.append((_to_host(out), {k: v.cpu().numpy()
                                                 for k, v in stats.items()}))
+                    if device == "cuda":
+                        bits.append(_bits((out, stats, state)))
                 check(int(state["tf_index"]) == 2 * BATCH_TF,
                       f"{path}/{name}/{fmt}: tf_index "
                       f"{int(state['tf_index'])}")
                 outs[(name, fmt)] = (res, m.tf_samples_out)
                 margins[(name, fmt)] = marg
-            return outs, margins
+                mods[(name, fmt)] = (m, bits)
+            return outs, margins, mods
 
-        # the path on the card, between a reset and a read of the counts
+        # the path on the card, between a reset and a read of the counts,
+        # traced: the graphs' replays run no Python, so the trace counts
+        # their launches on the card
         for k in kernels.values():
             k.launches = 0
         t0 = time.perf_counter()
-        gpu, _ = drive("cuda")
-        torch.cuda.synchronize()
+        (gpu, _, mods), traced = traced_launches(torch,
+                                                 lambda: drive("cuda"))
         counts = {k: f.launches for k, f in kernels.items()}
-        per_path[path] = counts
+        per_path[path], on_card[path] = counts, traced
         log(f"[4] {path} on the card: {len(cases)} x 2 batches in "
-            f"{time.perf_counter() - t0:.1f} s; kernel launches {counts}")
+            f"{time.perf_counter() - t0:.1f} s (traced); kernel launches "
+            f"{counts}, on the card {traced}")
+        for m, _ in mods.values():
+            check([c.replays for c in m.compiled.graphs.values()] == [2],
+                  f"{path}: not one graph replayed twice a case")
+        check_graph_launches(f"[4] {path}", [m for m, _ in mods.values()],
+                             counts, traced)
+        # the captured step against the eager step on the card
+        for name, _specs, fmt, batches in cases:
+            m, bits = mods[(name, fmt)]
+            check_captured(f"[4] {path}/{name}/{fmt}", bits, eager_bits(
+                torch, m, [(b.fic, tuple(b.subchannels)) for b in batches]))
+        log(f"[4] {path}: the captured steps equal the eager steps on the "
+            f"card to the bit (outputs, stats, state); the wrappers counted "
+            f"each warm-up and capture, the trace each warm-up and replay")
         for k in used:
             check(counts[k] > 0, f"the {path} path never launched {k}")
             launches[k] = launches.get(k, 0) + counts[k]
 
         t0 = time.perf_counter()
-        cpu, margins = drive("cpu")
+        cpu, margins, _ = drive("cpu")
         log(f"[4] the same on the CPU (plain versions) in "
             f"{time.perf_counter() - t0:.1f} s")
         rel = DPD_REL if "poly_coef_file" in extra else 3e-5
@@ -828,7 +974,7 @@ def phase_paths(torch):
                 if extra.get("cfr_error_clip", np.inf) < 1.0:
                     check(int(cs["cfr_errclip"].min()) > 0,
                           f"{tag}: the error clip never acted in a TF")
-    return launches, per_path
+    return launches, per_path, on_card
 
 
 def compare_batch(tag, fmt, g, gs, c, cs, n_out, margin, rel=3e-5):
@@ -937,10 +1083,26 @@ def profile_steps(torch, step, n=5) -> dict:
                 [key, us / n / 1e3, count // n] for key, (us, count) in top]}
 
 
+def _device_memory(torch) -> tuple:
+    """The caching allocator's reserved and allocated device memory, its
+    unused blocks released first."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+
+
 def time_path(torch, path, specs, extra, fmts):
-    """Step time, host issue time, samples/s at the output rate and the
-    profile of one path on the 17-sub-channel ensemble, in each of its
-    formats."""
+    """One path on the 17-sub-channel ensemble, in each of its formats,
+    timed both ways in one process: the eager step
+    (Modulator._modulate_impl, keys "eager_<fmt>_...") and the captured
+    step (Modulator.modulate, the graph's replay with its outputs cloned,
+    keys "<fmt>_..."); each: step time with its quartiles, the host's time
+    to issue a step in the same runs, samples/s at the output rate and
+    the profile.  With the graph's record ("<fmt>_graph"): the wall time
+    of the first step (warm-up, capture, replay), the device memory the
+    graph holds after it, the launches a replay runs, and the time to clone
+    a step's outputs."""
+    from torch.utils._pytree import tree_leaves, tree_map
     from dabmod_tpu_torch.eti import parse_eti_frames, synth_eti_batch
     from dabmod_tpu_torch.models import Modulator, make_default_layout
 
@@ -955,21 +1117,53 @@ def time_path(torch, path, specs, extra, fmts):
                      for x in b.subchannels)
         state = [m.init_state()]
 
+        def eager():
+            with torch.no_grad():
+                _, state[0], _ = m._modulate_impl(
+                    fic, subs, state[0], *m._gain_args(), m._apply_swaps())
+
         def step():
             _, state[0], _ = m.modulate(fic, subs, state[0])
-        # the host's time to issue a step comes from the same runs: equal
-        # to the step time when dispatch, not the card, sets the pace
-        runs, host = time_runs(torch, step)
-        ms = statistics.median(runs)
-        q1, _, q3 = statistics.quantiles(runs, n=4)
+        # the first step of the batch size (the eager warm-up, the
+        # capture, a replay and the clones) on the host's clock, and the
+        # device memory the caching allocator holds after it beyond what it
+        # held before (its unused blocks released both times): the graph's
+        # pool and static inputs
+        r0, a0 = _device_memory(torch)
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        r1, a1 = _device_memory(torch)
         n_out = BATCH_TF * m.tf_samples_out
-        rec.update({
-            f"{fmt}_ms_per_step": ms, f"{fmt}_ms_per_step_q1_q3": [q1, q3],
-            f"{fmt}_samples_per_s": n_out / (ms / 1e3),
-            f"{fmt}_host_issue_ms_per_step": statistics.median(host),
-            f"{fmt}_profile": profile_steps(torch, step)})
+        for key, fn in (("eager_", eager), ("", step)):
+            # the host's time to issue a step comes from the same runs:
+            # equal to the step time when dispatch, not the card, sets the
+            # pace
+            runs, host = time_runs(torch, fn)
+            ms = statistics.median(runs)
+            q1, _, q3 = statistics.quantiles(runs, n=4)
+            rec.update({
+                f"{key}{fmt}_ms_per_step": ms,
+                f"{key}{fmt}_ms_per_step_q1_q3": [q1, q3],
+                f"{key}{fmt}_ms_per_step_range": [min(runs), max(runs)],
+                f"{key}{fmt}_samples_per_s": n_out / (ms / 1e3),
+                f"{key}{fmt}_host_issue_ms_per_step": statistics.median(host),
+                f"{key}{fmt}_profile": profile_steps(torch, fn)})
+        cap = m.compiled.graphs[BATCH_TF]
+        clone, _ = time_runs(torch, lambda: tree_map(torch.clone,
+                                                     cap.outputs))
+        rec[f"{fmt}_graph"] = {
+            "first_step_s": first_s,
+            "reserved_bytes": r1 - r0, "allocated_bytes": a1 - a0,
+            "launches_per_replay": cap.launches,
+            "output_bytes": sum(x.numel() * x.element_size()
+                                for x in tree_leaves(cap.outputs)),
+            "clone_outputs_ms": statistics.median(clone)}
         rate = m.settings.output_rate
         rec[f"realtime_x_{fmt}"] = rec[f"{fmt}_samples_per_s"] / rate
+        rec[f"eager_realtime_x_{fmt}"] = (rec[f"eager_{fmt}_samples_per_s"]
+                                          / rate)
     rec = {"path": path, "ensemble": "realistic17", "mode": 1,
            "batch_tf": BATCH_TF, "output_rate": rate,
            "samples_per_step_out": n_out,
@@ -1222,14 +1416,19 @@ def time_dpd_stages(torch, cpm) -> dict:
     return rec
 
 
+# K3's launches at each rate: those of the paths that run at it
+K3_PATHS = {8_192_000: ("realistic17_cfr_8m192", "realistic17_dpd_8m192"),
+            3_072_000: ("realistic17_cfr30_3m072",)}
+
+
 def phase_times(torch, inputs, launches, ptxas):
     """Phase 5; `launches` is phase 4's (summed over paths, per path).
     Returns the eager stages' times and the kernels' records."""
     from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
-    total, per_path = launches
+    total, per_path, _ = launches
     steps = {path: time_path(torch, path, ensembles[0][1], extra, fmts)
              for path, (ensembles, extra, _used, fmts) in _paths().items()}
-    # the kiss engine's step: eager int32 ops, no kernel of the port
+    # the kiss engine's step: int32 torch ops, no kernel of the port
     steps["realistic17_kiss"] = time_path(
         torch, "realistic17_kiss", REALISTIC_MUX_SPECS,
         dict(fft_engine="kiss"), ("s16",))
@@ -1239,10 +1438,6 @@ def phase_times(torch, inputs, launches, ptxas):
     planes, table, clip = inputs["ofdm"]
     sets = ofdm_timing_sets(torch, planes)
     calls = ofdm_calls(table, clip)
-    # K3's launches at each rate: those of the paths that run at it
-    res_paths = {8_192_000: ("realistic17_cfr_8m192",
-                             "realistic17_dpd_8m192"),
-                 3_072_000: ("realistic17_cfr30_3m072",)}
     kernels = [
         time_ofdm_ifft(torch, cpm, sets, table, calls["ofdm_ifft"],
                        inputs["ofdm_ifft"], total["ofdm_ifft"],
@@ -1252,7 +1447,7 @@ def phase_times(torch, inputs, launches, ptxas):
                       ptxas["ofdm_cfr"]),
         *[time_resample(torch, cpm, *inputs["resample_poly"][rate],
                         sum(per_path[p]["resample_poly"]
-                            for p in res_paths[rate]),
+                            for p in K3_PATHS[rate]),
                         ptxas["resample_poly"])
           for rate in K3_TIMED_RATES]]
     return stages, kernels, steps
@@ -1293,33 +1488,41 @@ def _variant_batches(mode):
     return [parse_eti_frames(raw[:n]), parse_eti_frames(raw[n:])]
 
 
-def drive_both(torch, mode, settings, step=None):
+def drive_both(torch, mode, settings, step=None, tag=""):
     """Two batches through a modulator on the card and one on the CPU,
     the state carried; `step(m, batch, state, device)` replaces
-    modulate_eti.
+    modulate_eti.  The card's run is traced: its kernel launches are
+    checked against the wrappers' counts (check_graph_launches), and where
+    its steps replayed graphs, they are held against the eager step on
+    the card, to the bit.
     Returns ({"cuda": [...], "cpu": [...]} of (output on the host, stats),
-    the card's kernel launches)."""
+    the card's kernel launches as the wrappers counted them)."""
     from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
     from dabmod_tpu_torch.models import Modulator, make_default_layout
     step = step or (lambda m, b, st, _dev: m.modulate_eti(b, st))
     kernels = _kernels()
-    outs, counts = {}, None
-    for dev in ("cuda", "cpu"):
+    batches = _variant_batches(mode)
+
+    def run(dev):
         m = Modulator(make_default_layout(mode, REALISTIC_MUX_SPECS),
                       settings, device=dev)
-        if dev == "cuda":
-            for k in kernels.values():
-                k.launches = 0
-        state, res = m.init_state(), []
-        for b in _variant_batches(mode):
+        state, res, bits = m.init_state(), [], []
+        for b in batches:
             out, state, stats = step(m, b, state, dev)
             res.append((_to_host(out), {k: v.cpu().numpy()
                                         for k, v in stats.items()}))
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            counts = {k: f.launches for k, f in kernels.items()}
-        outs[dev] = res
-    return outs, counts
+            bits.append(_bits((out, stats, state)))
+        return m, res, bits
+
+    for k in kernels.values():
+        k.launches = 0
+    (m, res, bits), traced = traced_launches(torch, lambda: run("cuda"))
+    counts = {k: f.launches for k, f in kernels.items()}
+    check_graph_launches(f"[6] {tag}", [m], counts, traced)
+    if m.compiled.graphs:
+        check_captured(f"[6] {tag}", bits, eager_bits(
+            torch, m, [(b.fic, tuple(b.subchannels)) for b in batches]))
+    return {"cuda": res, "cpu": run("cpu")[1]}, counts
 
 
 def _max_err(g, c):
@@ -1335,7 +1538,8 @@ def check_lut_variant(torch, name, settings, outs):
     import dataclasses
     from dabmod_tpu_torch.ops import filters
     pre, _ = drive_both(torch, 1, dataclasses.replace(settings,
-                                                      poly_coef_file=""))
+                                                      poly_coef_file=""),
+                        tag=f"{name} before the DPD")
     scale_t = torch.tensor(np.float32(LUT_SCALE))
     n_other = n_edge = 0
     for k in range(2):
@@ -1359,7 +1563,9 @@ def check_lut_variant(torch, name, settings, outs):
 
 def check_variant(torch, name, mode, extra, fmt):
     settings = _settings(fmt, dab_mode=mode, **extra)
-    outs, counts = drive_both(torch, mode, settings)
+    outs, counts = drive_both(torch, mode, settings, tag=name)
+    # K1 at the warm-up before the capture and at the capture (on the
+    # card: the warm-up and two replays, drive_both's trace)
     check(counts == {"ofdm_ifft": 2, "ofdm_cfr": 0, "resample_poly": 0},
           f"[6] {name}: kernel launches {counts}")
     if name == "lut_dpd":
@@ -1386,7 +1592,8 @@ def check_variant(torch, name, mode, extra, fmt):
             what = (f"{g[0].shape[1]} samples a TF, max abs err {err:.3e} "
                     f"(tol {3e-5 * scale:.3e})")
         log(f"[6] {name} (TM {mode}) batch {k}: {what}")
-    log(f"[6] {name}: kernel launches on the card {counts}")
+    log(f"[6] {name}: kernel launches on the card {counts}; the captured "
+        f"steps equal the eager steps to the bit")
     return counts
 
 
@@ -1401,7 +1608,7 @@ def check_traced(torch):
     def traced(m, b, st, dev):
         return m.modulate_traced(b.fic, tuple(b.subchannels), st,
                                  os.path.join(root, dev))
-    drive_both(torch, 1, settings, traced)
+    drive_both(torch, 1, settings, traced, tag="modulate_traced")
     names = sorted(os.listdir(os.path.join(root, "cuda")))
     check(names and names == sorted(os.listdir(os.path.join(root, "cpu"))),
           f"[6] modulate_traced: stage files differ: {names}")
@@ -1429,14 +1636,18 @@ def check_traced(torch):
 
 
 def check_hot_swap(torch):
-    """New FIR taps and poly coefficients swapped in between two batches on
-    the card: equal to a modulator built with them."""
+    """New FIR taps and poly coefficients swapped in, and the digital gain
+    changed as the RC's `gain digital` changes it (the live settings),
+    between two replays of one graph on the card: equal to a modulator
+    built with them, on the same state; no second capture."""
     import dataclasses
+    from torch.utils._pytree import tree_map
     from dabmod_tpu_torch import tables
     from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
     from dabmod_tpu_torch.models import Modulator, make_default_layout
     taps2 = np.asarray(tables.DEFAULT_FIR_TAPS[::-1], np.float32)
     am2, pm2 = (0.9, 0.01, 0.0, 0.0, 0.0), (0.05, 0.0, 0.0, 0.0, 0.0)
+    gain2 = 0.8
     d = _TMP[0]
     with open(os.path.join(d, "taps2.txt"), "w") as f:
         f.write(f"{taps2.size}\n" + "".join(f"{float(t)!r}\n"
@@ -1446,7 +1657,8 @@ def check_hot_swap(torch):
     s1 = _settings("uhd", **DPD_8M192, poly_coef_file=dpd_files()["poly"])
     s2 = dataclasses.replace(s1, filter_taps_file=os.path.join(d,
                                                                "taps2.txt"),
-                             poly_coef_file=os.path.join(d, "poly2.coef"))
+                             poly_coef_file=os.path.join(d, "poly2.coef"),
+                             digital_gain=gain2)
     b1, b2 = _variant_batches(1)
     layout = make_default_layout(1, REALISTIC_MUX_SPECS)
     m = Modulator(layout, s1, device="cuda")
@@ -1455,15 +1667,19 @@ def check_hot_swap(torch):
           "[6] hot swap refused")
     check(not m.update_fir_taps(taps2[:7]), "[6] a tap-count change was "
           "taken as a hot swap")
+    m.settings.digital_gain = gain2
+    st_f = tree_map(torch.clone, st)
     got, _, _ = m.modulate_eti(b2, st)
     fresh = Modulator(layout, s2, device="cuda")
-    _, st_f, _ = fresh.modulate_eti(b1, fresh.init_state())
     want, _, _ = fresh.modulate_eti(b2, st_f)
     check(all(torch.equal(g, w) for g, w in zip(got, want)),
           "[6] hot swap differs from a fresh modulator")
-    log("[6] hot swap of FIR taps and poly coefficients between two "
-        "batches on the card: equal to a fresh modulator built with them; "
-        "a tap-count change refused")
+    check([c.replays for c in m.compiled.graphs.values()] == [2],
+          "[6] the hot swap captured the step again")
+    log("[6] hot swap of FIR taps and poly coefficients and a digital gain "
+        "change between two replays of one graph on the card: equal to a "
+        "fresh modulator built with them, on the same state; no second "
+        "capture; a tap-count change refused")
 
 
 def phase_variants(torch):
@@ -1497,11 +1713,15 @@ def _kiss_runs(torch, mode, ov, batches):
     out = {}
     for dev in ("cuda", "cpu"):
         m = Modulator(make_default_layout(mode, specs), s, device=dev)
-        state, res = m.init_state(), []
+        state, res, bits = m.init_state(), [], []
         for fic, subs in batches:
             words, state, stats = m.modulate(fic, subs, state)
             check(int(stats["num_clipped"]) == 0, "kiss: num_clipped != 0")
             res.append(words.cpu().numpy())
+            bits.append(_bits((words, stats, state)))
+        if dev == "cuda":
+            check_captured(f"[7] kiss TM {mode} overlap {ov}", bits,
+                           eager_bits(torch, m, batches))
         out[dev] = res
     return out
 
@@ -1528,7 +1748,8 @@ def phase_fixed_point(torch):
                                  ref), f"[7] kiss overlap {ov} on {dev} "
                   f"differs from {name}")
         log(f"[7] kiss TM I overlap {ov}: card == CPU == {name} "
-            f"({ref.size // 2} samples), bit for bit")
+            f"({ref.size // 2} samples), bit for bit; captured == eager "
+            f"on the card")
     for mode, ov in ((2, 90), (3, 63), (4, 0)):
         n = VARIANT_TF * tables.mode_params(mode).cif_count
         raw = synth_eti_batch(2 * n, mode=mode, seed=SEED + mode)
@@ -1539,7 +1760,8 @@ def phase_fixed_point(torch):
                                                        out["cpu"])),
               f"[7] kiss TM {mode} overlap {ov}: card != CPU")
         log(f"[7] kiss TM {mode} overlap {ov} ({VARIANT_TF} TFs x 2 "
-            f"batches): card == CPU, bit for bit")
+            f"batches): card == CPU, bit for bit; captured == eager on "
+            f"the card")
     for mode, ov in ((1, 0), (1, 12), (3, 0), (3, 12)):
         p = tables.mode_params(mode)
         b = parse_eti_frames(synth_eti_batch(p.cif_count, mode=mode,
@@ -1549,8 +1771,13 @@ def phase_fixed_point(torch):
         got = {}
         for dev in ("cuda", "cpu"):
             m = Modulator(make_default_layout(mode), s, device=dev)
-            syms, _, _ = m.modulate_eti(b, m.init_state())
-            syms = syms.cpu().numpy()
+            step = m.modulate_eti(b, m.init_state())
+            if dev == "cuda":
+                check_captured(f"[7] dexter TM {mode} overlap {ov}",
+                               [_bits((step[0], step[2], step[1]))],
+                               eager_bits(
+                                   torch, m, [(b.fic, b.subchannels)]))
+            syms = step[0].cpu().numpy()
             got[dev] = (syms, m.host_backend(syms),
                         m.host_backend.num_clipped)
         (gs, gw, gn), (cs, cw, cn) = got["cuda"], got["cpu"]
@@ -1563,7 +1790,7 @@ def phase_fixed_point(torch):
               f"overlap {ov}: host-chain wire words differ")
         log(f"[7] dexter TM {mode} overlap {ov}: Q1.14 symbols {gs.shape} "
             f"and {gw.size} wire words card == CPU, bit for bit "
-            f"(num_clipped {gn})")
+            f"(num_clipped {gn}); captured == eager on the card")
     log(f"[7] fixed-point engines passed in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1945,6 +2172,151 @@ def _compare_live(name, got, ref, fmt):
     return common, worst
 
 
+# (f): the ETI stream's batches in TFs, P the partial ones
+PARTIAL_TF = 5
+PARTIAL_CHUNKS = (BATCH_TF, BATCH_TF, PARTIAL_TF, BATCH_TF, PARTIAL_TF)
+PARTIAL_TCP_TIMEOUT_S = 0.25
+TF_S = 0.096                    # a transmission frame on air, TM I
+UNDERFLOW_SLACK_S = 0.005       # a frame this late is the device thread's
+
+
+def live_partial(torch):
+    """Phase 8 (f): partial batches of a live stream into a sink that
+    plays in real time.  ETI over TCP (tcp_timeout=PARTIAL_TCP_TIMEOUT_S)
+    into the main path, s16, output=dexter with its driver replaced by a
+    device that takes a TF's time on air for each frame (TF_S) and counts
+    an underflow where a frame comes after the one before has ended.  The
+    stream sends PARTIAL_CHUNKS, each once the runtime has modulated the
+    one before: each partial chunk ends the read at the timeout, and the
+    runtime sends a batch of PARTIAL_TF TFs: the first captures a graph,
+    the second replays it.  Each modulate call's wall (a capture's with
+    the device memory it left held) and the underflows by chunk."""
+    import threading
+    from dabmod_tpu_torch.config import parse_ini
+    from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS, synth_eti_batch
+    from dabmod_tpu_torch.io import sdr
+    from dabmod_tpu_torch.models import Modulator
+    from dabmod_tpu_torch.runtime import ModRuntime
+    from live_stream import ChunkServer
+
+    class PacedDevice(sdr.SdrDevice):
+        """A DAC's pace: a frame plays for TF_S from when it arrives or
+        when the one before ends, whichever is later; the device thread
+        waits until then, as a blocking SDR write does."""
+
+        def __init__(self, conf=None):
+            self.n, self.gaps, self._end = 0, [], None
+
+        def tune(self, lo_offset, frequency):
+            pass
+
+        def transmit_frame(self, samples, ts):
+            now = time.monotonic()
+            if self._end is not None and now > self._end + UNDERFLOW_SLACK_S:
+                self.gaps.append((now, now - self._end))
+            start = now if self._end is None else max(now, self._end)
+            self._end = start + TF_S
+            self.n += 1
+            time.sleep(max(0.0, start - now))
+
+    ends = np.cumsum(PARTIAL_CHUNKS) * 4          # ETI frames
+    frames = synth_eti_batch(int(ends[-1]), mode=1,
+                             subch_specs=REALISTIC_MUX_SPECS, seed=SEED + 9)
+    srv = ChunkServer([frames[a:b].tobytes()
+                       for a, b in zip((0, *ends[:-1]), ends)])
+    d = _TMP[0]
+    ini = os.path.join(d, "f_partial.ini")
+    with open(ini, "w") as f:
+        f.write(f"[input]\ntransport=tcp\nsource=tcp://127.0.0.1:"
+                f"{srv.port}\ntcp_timeout={PARTIAL_TCP_TIMEOUT_S}\n"
+                f"[modulator]\ngainmode=var\nbatch_tf={BATCH_TF}\n"
+                f"[dexteroutput]\n")
+    calls = []
+    modulate = Modulator.modulate
+
+    def timed(m, fic, subch, state):
+        tfs = fic.shape[0] // m.p.cif_count
+        new = tfs not in m.compiled.graphs
+        if new:
+            r0, a0 = _device_memory(torch)
+        t0 = time.perf_counter()
+        out = modulate(m, fic, subch, state)
+        rec = {"tfs": tfs, "captured": new,
+               "wall_s": time.perf_counter() - t0, "end": time.monotonic()}
+        if new:
+            r1, a1 = _device_memory(torch)
+            rec.update(reserved_bytes=r1 - r0, allocated_bytes=a1 - a0)
+        calls.append(rec)
+        return out
+
+    kernels = _kernels()
+    driver = sdr.DexterDevice
+    sdr.DexterDevice = PacedDevice
+    Modulator.modulate = timed
+    stop = threading.Event()
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        rt = ModRuntime(parse_ini(ini), device="cuda")
+
+        def release():
+            for k in range(len(ends)):
+                srv.release()
+                while (rt.framecount < ends[k] and not stop.is_set()):
+                    time.sleep(0.002)
+        th = threading.Thread(target=release, daemon=True)
+        th.start()
+        t0 = time.perf_counter()
+        code = rt.run(len(PARTIAL_CHUNKS))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = {k: f.launches for k, f in kernels.items()}
+        rt.close()
+        stop.set()
+        th.join(timeout=10)
+    finally:
+        Modulator.modulate = modulate
+        sdr.DexterDevice = driver
+        srv.close()
+    out, dev = rt.output, rt.output.device
+    check(code == 0 and out.fault is None,
+          f"[8] (f): runtime exited {code}, SDR fault {out.fault!r}")
+    check(counts["ofdm_ifft"] > 0, "[8] (f) never launched ofdm_ifft")
+    check([c["tfs"] for c in calls] == list(PARTIAL_CHUNKS),
+          f"[8] (f): batches of {[c['tfs'] for c in calls]} TFs, not "
+          f"{list(PARTIAL_CHUNKS)}")
+    graphs = rt.modulator.compiled.graphs
+    check(sorted(graphs) == sorted({BATCH_TF, PARTIAL_TF})
+          and graphs[PARTIAL_TF].replays == 2,
+          f"[8] (f): graphs {sorted(graphs)}, not one for {PARTIAL_TF} "
+          f"TFs replayed twice")
+    n_tf = int(ends[-1]) // 4
+    counters = {k: getattr(out, k) for k in
+                ("frames", "queue_overflows", "dropped", "muted",
+                 "underruns")}
+    check(counters["frames"] + counters["queue_overflows"]
+          + counters["dropped"] + counters["muted"] == n_tf
+          and dev.n == counters["frames"],
+          f"[8] (f): counters {counters} do not add up to {n_tf} TFs")
+    # each underflow under the batch whose frames came late: the last one
+    # modulated before the gap was seen
+    done = [c.pop("end") for c in calls]
+    by_chunk = [0] * len(PARTIAL_CHUNKS)
+    for at, _gap in dev.gaps:
+        by_chunk[max(sum(t <= at for t in done) - 1, 0)] += 1
+    rec = {"input": "eti/tcp", "tcp_timeout_s": PARTIAL_TCP_TIMEOUT_S,
+           "output": "sdr (paced device)", "format": "s16",
+           "output_rate": rt.settings.output_rate, "launches": counts,
+           "chunks_tf": list(PARTIAL_CHUNKS), "tf_s": TF_S,
+           "sdr_queue_tf": sdr.FRAMES_MAX_SIZE_UNSYNC,
+           "modulate_calls": calls, "run_s": run_s,
+           "underflows": len(dev.gaps), "underflows_by_chunk": by_chunk,
+           "underflow_gaps_s": [g for _, g in dev.gaps],
+           "counters": counters}
+    log(f"[8] (f) partial batches into a paced SDR: {json.dumps(rec)}")
+    return rec
+
+
 def phase_live(torch):
     """Phase 8: the live inputs into the SDR sinks, the 17-sub-channel
     ensemble, batch_tf=24, LIVE_BATCHES batches a stream.
@@ -1958,7 +2330,8 @@ def phase_live(torch):
     (EDI) or FCT (ETI); the SDR counters adding up to the TFs written;
     a warm run timed.  (d) also: chip_smoke's own feedback client gets a
     TX burst equal to the frame sent under its timestamp, and RX =
-    gain*TX.  (e) also: pinned host memory before and after."""
+    gain*TX.  (e) also: pinned host memory before and after.  Then (f),
+    live_partial."""
     from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS, synth_eti_batch
     from dabmod_tpu_torch.io import sdr
     from live_stream import (FRAME_TICKS, PPS_HZ, TcpServer, edi_stream,
@@ -2149,6 +2522,7 @@ def phase_live(torch):
         f"before close {rt_t.run_s:.3f} s = {n_tf * 4 / rt_t.run_s:.1f} "
         f"frames/s = {n_tf * 4 / rt_t.run_s * ETI_FRAME_S:.2f}x real time; "
         f"share of the run {json.dumps(records[name]['share_of_run'])}")
+    records["f_tcp_partial_paced_sdr"] = live_partial(torch)
     log(f"[8] live phase passed in {time.perf_counter() - t_phase:.1f} s")
     return records
 
@@ -3004,6 +3378,12 @@ def main():
     for k in kernels:
         base = "resample_poly" if k["name"].startswith("resample_poly") \
             else k["name"]
+        # phase 4's launches on the card, from its trace (the graphs'
+        # warm-ups and replays; "launches" is what the wrappers counted:
+        # the warm-ups and captures)
+        k["launches_on_card"] = sum(
+            n[base] for path, n in launches[2].items()
+            if base != "resample_poly" or path in K3_PATHS[k["rate"]])
         k["runtime_launches"] = {
             ini: rec["launches"][base]
             for ini, rec in (*runtime.items(), *live.items(), *dpd.items())
@@ -3017,7 +3397,7 @@ def main():
             if k.get("rate", 8_192_000) == 8_192_000
             or base != "resample_poly"}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"card": card, "kernels": kernels,
+    print(json.dumps({"card": card, "kernels": kernels, "steps": steps,
                       "eager_stages": stages, "runtime": runtime,
                       "live": live, "dpd": dpd, "sharded": sharded}),
           flush=True)

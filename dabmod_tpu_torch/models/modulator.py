@@ -18,9 +18,13 @@ The chain, in dabmod_tpu's order: FEC and carrier mapping -> NULL symbol
 with one CFR iteration and its statistics) -> gain -> guard interval
 (plain or windowed) -> FIR -> resampler (K3, the plain polyphase form, or
 the frequency-domain form) -> DPD (polynomial or LUT) -> wire format (f32
-planes, f32 pairs, s16, u8 or s8).  TM I-IV.  FIR taps and DPD
-coefficients are tensors passed to each step, so a hot swap
-(update_fir_taps, update_dpd) replaces tensors and rebuilds nothing.
+planes, f32 pairs, s16, u8 or s8).  TM I-IV.  The gains, FIR taps and
+DPD coefficients are tensors passed to each step, so an RC gain change or
+a hot swap (update_fir_taps, update_dpd) rebuilds nothing.
+
+On the card `modulate` replays a CUDA graph of the step, one per batch
+size (models/compiled.py, the counterpart of dabmod_tpu's jax.jit of the
+step); on the CPU, and in `modulate_traced`, the step runs eagerly.
 
 The two fixed-point engines branch off after the NULL symbol, as in
 dabmod_tpu: fft_engine=kiss runs the reference's KISS int16 transform and
@@ -34,6 +38,7 @@ from __future__ import annotations
 import collections
 import logging
 import os
+import threading
 
 import numpy as np
 import torch
@@ -47,6 +52,7 @@ from ..ops.filters import (PLAIN_BLOCK, PolyphasePlan, ResamplerPlan,
                            cic_equalizer_taps, fir_filter, format_convert,
                            memless_lut, memless_poly, pack_bytes,
                            pack_s16_planes, resample, resample_poly)
+from .compiled import GraphStep
 
 BASE_RATE = 2_048_000        # the modulator's native sample rate
 
@@ -252,11 +258,16 @@ class Modulator:
                     data[1])
 
         # FIR taps and DPD coefficients enter each step as tensors: a
-        # reload swaps them (the reference's mutex-guarded coefficient
+        # reload overwrites them (the reference's mutex-guarded coefficient
         # swap, src/FIRFilter.cpp:137-140, src/MemlessPoly.cpp:192-199).
         # Which of them exist is fixed here; a reload that changes a shape
         # or the DPD kind needs a new Modulator, as in the reference.
         self._runtime_params = self._make_runtime_params()
+        self._swap_lock = threading.Lock()
+        self._staged = {}           # swaps not yet in _runtime_params
+
+        # the captured steps on the card (None: the step runs eagerly)
+        self.compiled = GraphStep() if dev.type == "cuda" else None
 
         self._wire_fmt = _wire_format(s)
         if self._kiss:
@@ -309,39 +320,53 @@ class Modulator:
             rp["lut_scale"] = self._param(np.float32(self._lut_scale))
         return rp
 
+    def _stage(self, **arrays):
+        with self._swap_lock:
+            self._staged.update(
+                (k, np.array(v, np.float32)) for k, v in arrays.items())
+
+    def _apply_swaps(self) -> dict:
+        """The step's FIR taps and DPD coefficients, with the swaps staged
+        since the last call copied into them in place: the tensors stay
+        the ones a captured graph reads, and no step sees half a swap.
+        Called on the thread that issues the steps (update_fir_taps and
+        update_dpd may run on another, the RC's)."""
+        with self._swap_lock:
+            staged = dict(self._staged)
+            self._staged.clear()
+        for k, v in staged.items():
+            self._runtime_params[k].copy_(torch.from_numpy(v))
+        return self._runtime_params
+
     def update_fir_taps(self, taps) -> bool:
-        """Swap in new FIR taps.  Returns False when the tap count differs
-        from this modulator's (a new Modulator is needed)."""
+        """Swap in new FIR taps from the next step on.  Returns False when
+        the tap count differs from this modulator's (a new Modulator is
+        needed)."""
         taps = np.asarray(taps, np.float32)
         if self._fir_taps is None or taps.shape != self._fir_taps.shape:
             return False
         self._fir_taps = taps
-        self._runtime_params = dict(self._runtime_params,
-                                    fir_taps=self._param(taps))
+        self._stage(fir_taps=taps)
         return True
 
     def update_dpd(self, kind: str, data) -> bool:
-        """Swap in new DPD coefficients: kind "poly" with (am, pm), or
-        "lut" with (scalefactor, lut [32, 2]).  Returns False when the kind
-        or a shape differs from this modulator's."""
+        """Swap in new DPD coefficients from the next step on: kind "poly"
+        with (am, pm), or "lut" with (scalefactor, lut [32, 2]).  Returns
+        False when the kind or a shape differs from this modulator's."""
         if kind == "poly":
             am, pm = (np.asarray(a, np.float32) for a in data)
             if self._poly_am is None or am.shape != self._poly_am.shape \
                     or pm.shape != self._poly_pm.shape:
                 return False
             self._poly_am, self._poly_pm = am, pm
-            self._runtime_params = dict(self._runtime_params,
-                                        poly_am=self._param(am),
-                                        poly_pm=self._param(pm))
+            self._stage(poly_am=am, poly_pm=pm)
             return True
         scalefactor, lut = data
         lut = np.asarray(lut)
         if self._lut is None or lut.shape != self._lut.shape:
             return False
         self._lut, self._lut_scale = lut, float(scalefactor)
-        self._runtime_params = dict(
-            self._runtime_params, lut=self._param(lut),
-            lut_scale=self._param(np.float32(scalefactor)))
+        self._stage(lut=lut, lut_scale=np.float32(scalefactor))
         return True
 
     def refresh_runtime_params(self) -> bool:
@@ -359,6 +384,7 @@ class Modulator:
                                  or self._lut is not None):
             kind, data = load_dpd_file(s.poly_coef_file)
             ok = self.update_dpd(kind, data) and ok
+        self._apply_swaps()
         return ok
 
     # ------------------------------------------------------------------
@@ -578,11 +604,13 @@ class Modulator:
         return iq[1] * 65536 + (iq[0] & 0xFFFF)
 
     def _modulate_impl(self, fic_bytes, subch_bytes, state,
-                       constant_gain: float, var_k: float, rp: dict,
-                       time_interleave=fec.time_interleave_all,
+                       constant_gain: torch.Tensor, var_k: torch.Tensor,
+                       rp: dict, time_interleave=fec.time_interleave_all,
                        resample=None):
-        """One batch (see modulate).  `time_interleave` and `resample`
-        (default self._resample) are the step's TF couplings:
+        """One batch (see modulate), eagerly: the step a graph captures.
+        The gains are 0-d float32 tensors (_gain_args) and rp the FIR taps
+        and DPD coefficients (_apply_swaps).  `time_interleave` and
+        `resample` (default self._resample) are the step's TF couplings:
         parallel.ShardedModulator passes their sharded forms."""
         p = self.p
         s = self.settings
@@ -674,22 +702,44 @@ class Modulator:
         With CFR, stats also holds per TF [B]: "cfr_clip" and "cfr_errclip"
         (int32 counts), "papr_before_cfr", "papr_after_cfr" and "mer_db"
         (float32 dB) and "mer_valid" (bool).
+
+        On the card this replays the batch size's CUDA graph (captured at
+        its first step, models/compiled.py) and returns clones of its
+        outputs, so a later call overwrites nothing it returned; on the
+        CPU it runs the step eagerly.
         """
+        fic, subch = self._batch(fic_bytes, subch_bytes)
+        with torch.no_grad():
+            if self.compiled is not None:
+                return self.compiled.step(self, fic, subch, state)
+            return self._eager_step(fic, subch, state)
+
+    def _batch(self, fic_bytes, subch_bytes):
+        """A batch's ETI payload bytes on the device."""
         fic = self._bytes(fic_bytes)
         if fic.shape[0] % self.p.cif_count:
             raise ValueError(f"{fic.shape[0]} ETI frames is not a multiple "
                              f"of {self.p.cif_count} CIFs per TF")
-        with torch.no_grad():
-            return self._modulate_impl(
-                fic, tuple(self._bytes(x) for x in subch_bytes), state,
-                *self._gain_args(), self._runtime_params)
+        return fic, tuple(self._bytes(x) for x in subch_bytes)
 
-    def _gain_args(self) -> tuple[float, float]:
+    def _eager_step(self, fic, subch, state):
+        return self._modulate_impl(fic, subch, state, *self._gain_args(),
+                                   self._apply_swaps())
+
+    def _gain_values(self) -> tuple[float, float]:
         """The step's gain scalars (constant gain, var_k) from the live
-        settings, float32 values as dabmod_tpu passes them (jnp.float32)."""
+        settings, rounded to float32 as dabmod_tpu rounds them
+        (jnp.float32)."""
         s = self.settings
         return (float(np.float32(s.normalise * s.digital_gain)),
                 float(np.float32(s.gain_mode_variance)))
+
+    def _gain_args(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """_gain_values as 0-d float32 tensors on the device (filled, not
+        copied from the host)."""
+        return tuple(torch.full((), v, dtype=torch.float32,
+                                device=self.device)
+                     for v in self._gain_values())
 
     def modulate_eti(self, batch: EtiFrameBatch, state):
         """Convenience: modulate a parsed ETI batch."""
@@ -750,7 +800,9 @@ class Modulator:
 
         self._tap = dump
         try:
-            return self.modulate(fic_bytes, subch_bytes, state)
+            with torch.no_grad():
+                return self._eager_step(*self._batch(fic_bytes, subch_bytes),
+                                        state)
         finally:
             self._tap = None
 

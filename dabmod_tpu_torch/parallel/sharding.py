@@ -318,9 +318,10 @@ class ShardedModulator:
 
     Every rank passes the same global batch (T ETI frames, B = T/cif_count
     TFs) and copies only its own T/world frames to its device; the state
-    is replicated.  Each call reads the modulator's _runtime_params, so
-    update_fir_taps and update_dpd on the wrapped modulator reach the next
-    sharded step (JAX's sharded step bakes them in at its first trace).
+    is replicated.  Each call takes the modulator's parameters through its
+    _apply_swaps, so update_fir_taps and update_dpd on the wrapped
+    modulator reach the next sharded step (JAX's sharded step bakes them
+    in at its first trace).  The sharded step runs eagerly.
     The modulator is not copied or changed: the step passes the sharded
     time interleaver and resampler to its _modulate_impl."""
 
@@ -366,7 +367,7 @@ class ShardedModulator:
         subs = tuple(m._bytes(x[frames]) for x in subch_bytes)
         with torch.no_grad():
             out, new, stats = m._modulate_impl(
-                fic, subs, local, *m._gain_args(), m._runtime_params,
+                fic, subs, local, *m._gain_args(), m._apply_swaps(),
                 time_interleave=self._ti, resample=self._resample)
         new["tf_index"] = state["tf_index"] + B
         if "mer_index" in new:

@@ -259,6 +259,11 @@ def test_resampler_launch_shape_fits(card, rate):
     assert shape["resident_blocks_per_sm"] >= 1
 
 
+# the wrappers' counts of a new modulator's two batches on the card: the
+# warm-up before its graph's capture and the capture (a replay runs no
+# Python: its launches are counted in a trace, below)
+WARMUP_AND_CAPTURE = 2
+
 MOD_PATHS = {"main": {},
              "cfr_8m192": dict(enable_cfr=True, cfr_clip=40.0,
                                cfr_error_clip=3.0, output_rate=8_192_000),
@@ -297,7 +302,8 @@ def test_modulator_on_card_matches_cpu(card, path, fmt):
             out, state, stats = m.modulate_eti(b, state)
             res.append((out, {k: v.cpu().numpy() for k, v in stats.items()}))
         launched = [k.launches - n for k, n in zip(kernels, before)]
-        assert launched == [2 if dev == card else 0] * len(kernels)
+        assert launched == [WARMUP_AND_CAPTURE if dev == card else 0] * len(
+            kernels)
         assert int(state["tf_index"]) == 4
         outs[str(dev)] = res
     for i, ((g, gs), (c, cs)) in enumerate(zip(outs[str(card)],
@@ -534,10 +540,11 @@ def _run_both(card, settings, n_batches=2, seed=6, traced=None):
 @pytest.mark.cuda
 def test_dpd_chain_on_card(card, tmp_path):
     """The new full-width path's settings at 2 TFs a batch: K2 and K3
-    launched once a batch, K1 never; the output within 1e-4*max|ref| of
+    launched once a step (and at the warm-up), K1 never; the output within 1e-4*max|ref| of
     the CPU's, CFR's PAPR within 1e-3 dB."""
     gpu, cpu, launched = _run_both(card, _dpd_chain(tmp_path))
-    assert launched == {"ofdm_ifft": 0, "ofdm_cfr": 2, "resample_poly": 2}
+    assert launched == {"ofdm_ifft": 0, "ofdm_cfr": WARMUP_AND_CAPTURE,
+                        "resample_poly": WARMUP_AND_CAPTURE}
     for (g, gs), (c, cs) in zip(gpu, cpu):
         assert g[0].shape == (2, 4 * tables.mode_params(1).tf_samples)
         _close(g, c, 1e-4)
@@ -556,7 +563,8 @@ def test_resampler_route_on_card(card, rate, mode, k3):
     s = ModSettings(dab_mode=1, device_interleave=False, output_rate=rate,
                     resampler_mode=mode)
     gpu, cpu, launched = _run_both(card, s)
-    assert launched == {"ofdm_ifft": 2, "ofdm_cfr": 0, "resample_poly": k3}
+    assert launched == {"ofdm_ifft": WARMUP_AND_CAPTURE, "ofdm_cfr": 0,
+                        "resample_poly": WARMUP_AND_CAPTURE if k3 else 0}
     for (g, _), (c, _) in zip(gpu, cpu):
         _close(g, c, 3e-5)
 
@@ -919,3 +927,249 @@ def test_sharded_step_on_card_equals_unsharded(card, tmp_path):
                         np.testing.assert_array_equal(a, x)
         for r in res:
             assert r[ci]["launches"] == list(launches)
+
+
+# ---------------------------------------------------------------------------
+# the compiled step: Modulator.modulate replays a CUDA graph a batch size
+# ---------------------------------------------------------------------------
+
+def _lut_file(directory):
+    lut = (np.linspace(1.0, 0.9, 32) + 1j * np.linspace(0, 0.05, 32)
+           ).astype(np.complex64)
+    path = os.path.join(str(directory), "lut.coef")
+    with open(path, "w") as f:
+        f.write(f"2\n{2.0 ** 31!r}\n" + "".join(
+            f"{float(v.real)!r}\n{float(v.imag)!r}\n" for v in lut))
+    return path
+
+
+def _graph_paths(tmp_path):
+    """The paths whose captured step is held against the eager step."""
+    planes = dict(device_interleave=False)
+    return {
+        "main": ModSettings(dab_mode=1, **planes),
+        "main_s16": ModSettings(dab_mode=1, output="file",
+                                file_output_format="s16"
+                                ).normalise_for_output(),
+        "cfr_8m192": ModSettings(dab_mode=1, **planes,
+                                 **MOD_PATHS["cfr_8m192"]),
+        "cfr30_3m072": ModSettings(dab_mode=1, **planes,
+                                   **MOD_PATHS["cfr30_3m072"]),
+        "dpd_poly": _dpd_chain(tmp_path),
+        "dpd_lut": ModSettings(dab_mode=1, output="uhd", **planes,
+                               poly_coef_file=_lut_file(tmp_path)
+                               ).normalise_for_output(),
+        "kiss": ModSettings(dab_mode=1, fft_engine="kiss",
+                            ofdm_window_overlap=90),
+        "dexter": ModSettings(dab_mode=1, fft_engine="dexter",
+                              ofdm_window_overlap=12),
+    }
+
+
+def _card_batches(card, n, tfs=2, seed=9):
+    raw = synth_eti_batch(4 * tfs * n, mode=1, subch_specs=BENCH_SPECS,
+                          seed=seed)
+    out = []
+    for i in range(n):
+        b = parse_eti_frames(raw[4 * tfs * i:4 * tfs * (i + 1)])
+        out.append((torch.as_tensor(b.fic, device=card),
+                    tuple(torch.as_tensor(x, device=card)
+                          for x in b.subchannels)))
+    return out
+
+
+def _eager_step(m, batch, state):
+    with torch.no_grad():
+        return m._modulate_impl(*batch, state, *m._gain_args(),
+                                m._apply_swaps())
+
+
+def _leaves(tree):
+    from torch.utils._pytree import tree_leaves
+    return tree_leaves(tree)
+
+
+def _assert_same_bits(got, want):
+    g, w = _leaves(got), _leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["main", "main_s16", "cfr_8m192",
+                                  "cfr30_3m072", "dpd_poly", "dpd_lut",
+                                  "kiss", "dexter"])
+def test_captured_step_equals_eager_on_card(card, tmp_path, path):
+    """Three batches, the state carried: the replayed graph's output, stats
+    and state equal to the bit the eager step's on the same card."""
+    s = _graph_paths(tmp_path)[path]
+    m = Modulator(make_default_layout(1, BENCH_SPECS), s, device=card)
+    ref = Modulator(make_default_layout(1, BENCH_SPECS), s, device=card)
+    st, st_ref = m.init_state(), ref.init_state()
+    for batch in _card_batches(card, 3):
+        got = m.modulate(*batch, st)
+        want = _eager_step(ref, batch, st_ref)
+        _assert_same_bits(got, want)
+        st, st_ref = got[1], want[1]
+    (cap,) = m.compiled.graphs.values()
+    assert cap.replays == 3
+
+
+@pytest.mark.cuda
+def test_swaps_and_gains_between_replays_on_card(card, tmp_path):
+    """FIR taps, poly coefficients, `gain digital` and `gain var` changed
+    between two replays: the second equals a modulator built with the new
+    values on the same state, with no second capture."""
+    import dataclasses
+    s = _dpd_chain(tmp_path)
+    m = Modulator(make_default_layout(1, BENCH_SPECS), s, device=card)
+    b1, b2 = _card_batches(card, 2)
+    _, st, _ = m.modulate(*b1, m.init_state())
+    taps2 = np.asarray(tables.DEFAULT_FIR_TAPS[::-1], np.float32)
+    am2, pm2 = (0.9, 0.01, 0.0, 0.0, 0.0), (0.05, 0.0, 0.0, 0.0, 0.0)
+    assert m.update_fir_taps(taps2) and m.update_dpd("poly", (am2, pm2))
+    s.digital_gain, s.gain_mode_variance = 0.8, 3.0
+    kept = tuple(x.clone() for x in _leaves(st))
+    got = m.modulate(*b2, st)
+    taps_file = tmp_path / "taps2.txt"
+    taps_file.write_text(f"{taps2.size}\n" + "".join(
+        f"{float(t)!r}\n" for t in taps2))
+    fresh = Modulator(m.layout, dataclasses.replace(
+        s, filter_taps_file=str(taps_file),
+        poly_coef_file=_poly_file(tmp_path, am2, pm2, "p2.coef")),
+        device=card)
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+    st_f = tree_unflatten(list(kept), tree_flatten(st)[1])
+    want = fresh.modulate(*b2, st_f)
+    _assert_same_bits(got, want)
+    (cap,) = m.compiled.graphs.values()
+    assert cap.replays == 2
+
+
+@pytest.mark.cuda
+def test_second_batch_size_captures_a_second_graph_on_card(card):
+    s = ModSettings(dab_mode=1, device_interleave=False,
+                    **MOD_PATHS["cfr_8m192"])
+    m = Modulator(make_default_layout(1, BENCH_SPECS), s, device=card)
+    ref = Modulator(make_default_layout(1, BENCH_SPECS), s, device=card)
+    st, st_ref = m.init_state(), ref.init_state()
+    two, one = _card_batches(card, 2, 2, 10), _card_batches(card, 2, 1, 11)
+    r0, reserved = _reserved_bytes(), []
+    for batch in (two[0], one[0], two[1], one[1]):
+        got = m.modulate(*batch, st)
+        want = _eager_step(ref, batch, st_ref)
+        _assert_same_bits(got, want)
+        st, st_ref = got[1], want[1]
+        reserved.append(_reserved_bytes())
+    assert sorted(m.compiled.graphs) == [1, 2]
+    assert [m.compiled.graphs[b].replays for b in (1, 2)] == [2, 2]
+    # one pool: the smaller graph, captured second, takes little beyond
+    # what the first graph's pool holds
+    first, second = reserved[0] - r0, reserved[1] - reserved[0]
+    assert first > 0 and second < first
+
+
+@pytest.mark.cuda
+def test_returned_output_unchanged_after_next_call_on_card(card):
+    m = Modulator(make_default_layout(1, BENCH_SPECS), ModSettings(
+        dab_mode=1, device_interleave=False, **MOD_PATHS["cfr_8m192"]),
+        device=card)
+    b1, b2 = _card_batches(card, 2)
+    first = m.modulate(*b1, m.init_state())
+    kept = [x.clone() for x in _leaves(first)]
+    m.modulate(*b2, first[1])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(first), kept))
+
+
+# the kernels' names on the card: the counted wrapper of each
+KERNEL_NAMES = {"ofdm_ifft_kernel": "ofdm_backend",
+                "ofdm_cfr_kernel": "ofdm_cfr_backend",
+                "resample_poly": "resample"}
+
+
+def _kernel_of(event_name: str) -> str:
+    """A device event's kernel name without its namespace, template
+    arguments and parameters."""
+    name = event_name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
+
+
+def _traced_launches(fn) -> dict:
+    """Runs fn under torch.profiler: the device's launches of each counted
+    kernel, from the trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(KERNEL_NAMES.values(), 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            k = KERNEL_NAMES.get(_kernel_of(e.name))
+            if k is not None:
+                out[k] += 1
+    return out
+
+
+def _reserved_bytes() -> int:
+    """The caching allocator's device memory, its unused blocks released:
+    what the live tensors and the graphs' pools hold."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+@pytest.mark.cuda
+def test_launch_counts_equal_replays_on_card(card):
+    """Four steps: the wrappers count the warm-up's launches and the
+    capture's, and nothing at a replay; the card runs the warm-up's
+    launches and the graph's at each replay (a torch.profiler trace of the
+    run)."""
+    m = Modulator(make_default_layout(1, BENCH_SPECS), ModSettings(
+        dab_mode=1, device_interleave=False, **MOD_PATHS["cfr_8m192"]),
+        device=card)
+    batches = _card_batches(card, 4)
+    kernels = (ofdm_kernel.ofdm_backend, ofdm_kernel.ofdm_cfr_backend,
+               resampler_kernel.resample)
+    for k in kernels:
+        k.launches = 0
+    st = [m.init_state()]
+
+    def run():
+        for batch in batches:
+            _, st[0], _ = m.modulate(*batch, st[0])
+    traced = _traced_launches(run)
+    (cap,) = m.compiled.graphs.values()
+    assert cap.launches == {"ofdm_backend": 0, "ofdm_cfr_backend": 1,
+                            "resample": 1}
+    assert [k.launches for k in kernels] == [0, 2, 2]
+    assert cap.replays == 4
+    assert traced == {k: (1 + cap.replays) * n
+                      for k, n in cap.launches.items()}
+
+
+# last in the file: a failed capture leaves its side stream unusable
+@pytest.mark.cuda
+def test_failed_capture_raises_on_card(card, monkeypatch):
+    """A host synchronisation in the step fails the capture: modulate
+    raises, keeps no graph and carries on neither eagerly nor on the
+    CPU."""
+    m = Modulator(make_default_layout(1, BENCH_SPECS),
+                  ModSettings(dab_mode=1, device_interleave=False),
+                  device=card)
+    impl = m._ofdm_symbols_impl
+
+    def syncing(*a, **k):
+        out = impl(*a, **k)
+        float(out[0][0].sum())              # a device-to-host copy
+        return out
+    monkeypatch.setattr(m, "_ofdm_symbols_impl", syncing)
+    (batch,) = _card_batches(card, 1)
+    with pytest.raises(RuntimeError):
+        m.modulate(*batch, m.init_state())
+    assert not m.compiled.graphs
+    torch.cuda.synchronize()
