@@ -15,7 +15,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    at a plan that takes it (its compile-time M or 0, KP and R as the
    source builds them); fails if an instance of K1, K2 or K3 spills or
    launches another block layout than ofdm_kernel or resampler_kernel
-   assumes.
+   assumes.  Also builds (g++) and loads the native host library
+   (dabmod_tpu_torch/native.py from native/dabmod_native.cpp) and fails
+   where it does not load: the EDI RS decode and the host format
+   conversion take it.
 2. Each kernel against its plain PyTorch version on the card, on inputs
    made from a numpy seed:
    * K1, the OFDM IFFT, at all four spacings (TM I-IV), with each mode's
@@ -117,7 +120,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      byte for byte); a second, warm run timed: ETI frames/s, x real time
      (an ETI frame is 24 ms), each pipeline stage's share of the wall,
      beside the step of Modulator.modulate alone from phase 5 (which also
-     times the kiss path);
+     times the kiss path), and the main thread's read share of (a); one
+     batch's ETI parse (96 frames of the 17-sub-channel multiplex) through
+     parse_eti_frames (NumPy, what the runtime takes) and through the
+     native library's parse, host ms, the fields equal;
    * `python -m dabmod_tpu_torch.cli <ini>` as a subprocess on the card
      (INI a, 2 batches): exit 0 and the in-process run's bytes.
 8. The live inputs into the SDR sinks (ModRuntime in-process, INI files,
@@ -136,7 +142,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    timed.  (d) also: chip_smoke's own feedback client gets a TX burst
    equal to the frame sent under its timestamp, and RX = gain*TX.
    (e) also: the pinned host memory Python references before and after
-   the run, and the batch buffers the SDR queue's frames held at most.
+   the run, and the batch buffers the SDR queue's frames held at most;
+   and a soak: (e) for 16 x 4 batches on one runtime, run 4 batches at a
+   time, the pinned memory the host allocator holds and the pinned
+   tensors Python references read after each run, and the most batches'
+   output buffers alive at once counted (fails where the pool grows over
+   the second half by more than that many output blocks, or the
+   references grow over the runs).
    (f) partial batches: ETI over TCP with tcp_timeout=0.25 into (e)'s
    sink, its device replaced by one that plays each frame for a TF's time
    (96 ms) and counts an underflow where a frame comes after the one
@@ -174,18 +186,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    card (CUDA tensors), with a new poly coefficient set swapped in through
    update_dpd between its two batches; main s16 at 2.048 MS/s on 2 gloo
    ranks (K1, num_clipped summed over the ranks); realistic17_dpd_8m192
-   on 1 NCCL rank, and on 4 (one a card) where there are 4 cards.  The
-   sharded step runs eagerly.  Each against the unsharded step on the card
-   (Modulator.modulate, the captured graph) on the same batches (with the
-   same swap): compare_batch's tolerances, every rank's state (TI history,
-   res_carry, tf_index, mer_index) equal to the bit, each rank's kernel
-   launches (counted between a reset and a read around its run) its
-   kernels once a batch.  Prints which worlds ran over which backend, the
-   sharded step's host wall per run beside the unsharded step's, and the
-   collectives, buffer bytes and time of the exchanges inside the timed
-   steps (parallel.EXCHANGES: counted in exchange_tails, timed with CUDA
-   events around each) and their share of the step.  Ranks that share
-   one card measure correctness and the exchange's cost, not scaling.
+   on 1 NCCL rank, and on 4 (one a card) where there are 4 cards.  Over
+   gloo the sharded step runs eagerly; over NCCL each rank runs it twice,
+   captured (ShardedModulator.compiled: a CUDA graph a batch size that
+   holds the rank's kernels and its all_reduces) and eager, each main
+   path under torch.profiler, and fails where it did not capture.  Each
+   against the unsharded step on the card (Modulator.modulate, the
+   captured graph) on the same batches (with the same swap):
+   compare_batch's tolerances, every rank's state (TI history, res_carry,
+   tf_index, mer_index) equal to the bit; an eager run's kernel launches
+   (counted between a reset and a read around its run) its kernels once
+   a batch; a captured run's counted launches each graph's warm-up and
+   capture, its traced launches the warm-up and each replay, its
+   collectives counted at the warm-up and the capture (twice the eager
+   step's) and none at a replay, NCCL's all-reduce kernels in its trace
+   (warm-up + replays) x the graph's collectives x the eager trace's
+   kernels a collective, its output equal to the eager step's to the bit
+   on every rank, and 300 more replays on the same inputs leaving the
+   output unchanged and a barrier passing.  Prints which worlds ran over
+   which backend, the sharded step's host wall per run and kind beside
+   the unsharded step's, the collectives, buffer bytes and time of the
+   eager exchanges inside the timed steps (parallel.EXCHANGES: counted
+   in exchange_tails, timed with CUDA events around each) and their share
+   of the step, and NCCL's all-reduce kernels a step and their device
+   time from a trace of 5 steps.  Ranks that share one card measure
+   correctness and the exchange's cost, not scaling.
 
 TF32 is switched off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False): every tolerance below assumes fp32
@@ -448,6 +473,15 @@ def phase_card_and_build(torch):
         if name == "resample_poly":
             check_resampler_instances(ptxas[name])
         log(f"    {name}: {json.dumps(ptxas[name])}")
+    from dabmod_tpu_torch import native
+    t0 = time.perf_counter()
+    check(native.get_lib() is not None,
+          "[1] the native host library (native/dabmod_native.cpp, g++) did "
+          "not build or load: the RS decode and s16/u8/s8 conversion "
+          "would take their NumPy branches")
+    log(f"[1] native host library {os.path.relpath(native.library_path(), ROOT)} "
+        f"built and loaded in {time.perf_counter() - t0:.1f} s (g++): the "
+        f"EDI RS decode and the host format conversion take it")
     return card, ptxas
 
 
@@ -811,10 +845,17 @@ def _kernel_of(event_name: str) -> str:
     return name.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
 
 
-def traced_launches(torch, fn):
+# NCCL's all-reduce kernels, as a device trace names them
+# (ncclDevKernel_AllReduce_Sum_u8_RING_LL, ncclKernel_AllReduce_RING_LL_...)
+NCCL_ALL_REDUCE = re.compile(r"^nccl\w*AllReduce")
+
+
+def traced_launches(torch, fn, nccl=False):
     """fn() under torch.profiler, the card synchronised before and after:
     (its result, each counted kernel's launches on the card in the trace,
-    keyed as _kernels()).  Fails where the trace holds no device event."""
+    keyed as _kernels()).  With nccl, also "nccl_all_reduce", NCCL's
+    all-reduce kernels in the trace, and "nccl_all_reduce_ms", their summed
+    device time.  Fails where the trace holds no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -826,10 +867,17 @@ def traced_launches(torch, fn):
     check(len(dev) > 0, "torch.profiler traced no device event: the "
           "launches on the card are not measured")
     out = dict.fromkeys(KERNEL_SYMBOLS.values(), 0)
+    if nccl:
+        out.update(nccl_all_reduce=0, nccl_all_reduce_ms=0.0)
     for e in dev:
-        k = KERNEL_SYMBOLS.get(_kernel_of(e.name))
+        name = _kernel_of(e.name)
+        k = KERNEL_SYMBOLS.get(name)
         if k is not None:
             out[k] += 1
+        elif nccl and NCCL_ALL_REDUCE.match(name):
+            out["nccl_all_reduce"] += 1
+            out["nccl_all_reduce_ms"] += (
+                e.time_range.end - e.time_range.start) / 1e3
     return res, out
 
 
@@ -1800,6 +1848,49 @@ RUNTIME_COMPARED = 2         # of them, compared with the CPU runtime's
 ETI_FRAME_S = 0.024
 
 
+ETI_PARSE_RUNS = 20           # parses of one batch timed each way
+
+
+def eti_parse_times(raw) -> dict:
+    """One batch of ETI frames (the runtime's batch of the 17-sub-channel
+    multiplex) through parse_eti_frames, the NumPy parser the runtime
+    takes, and through the native library's parse (native.parse_eti_batch,
+    which dabmod_tpu's parse_eti_frames tries first): host ms, median of
+    ETI_PARSE_RUNS, the native result checked field by field against the
+    NumPy batch.  Fails where the native library did not load."""
+    from dabmod_tpu_torch import eti, native
+    check(native.get_lib() is not None, "[7] the native host library did "
+          "not load")
+
+    def timed(parse):
+        walls = []
+        for _ in range(ETI_PARSE_RUNS):
+            t0 = time.perf_counter()
+            out = parse(raw)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls), out
+    t_numpy, b = timed(eti.parse_eti_frames)
+    t_native, (mid, stc, fct, fp, mnsc, tist, fic, subs) = timed(
+        native.parse_eti_batch)
+    same = (mid == b.layout.mid
+            and [sc for sc, _, _, _ in stc] == list(b.layout.scids)
+            and [eti.SubchannelParams(sad, stl * 8, tpl)
+                 for _, sad, stl, tpl in stc] == list(b.layout.subchannels)
+            and all(np.array_equal(x, y) for x, y in (
+                (fct, b.fct), (fp, b.fp), (mnsc, b.mnsc),
+                (tist, b.tist_pps), (fic, b.fic)))
+            and len(subs) == len(b.subchannels)
+            and all(np.array_equal(x, y)
+                    for x, y in zip(subs, b.subchannels)))
+    check(same, "[7] the native ETI parse differs from the NumPy parse")
+    log(f"[7] ETI parse of {raw.shape[0]} frames (one batch, "
+        f"{len(b.subchannels)} sub-channels): NumPy (parse_eti_frames, "
+        f"what the runtime takes) {t_numpy:.3f} ms, the native library's "
+        f"parse {t_native:.3f} ms (host, median of {ETI_PARSE_RUNS}); "
+        f"equal fields")
+    return {"frames": raw.shape[0], "native": t_native, "numpy": t_numpy}
+
+
 def _runtime_inis():
     """Phase 7's INIs: (modulator keys, other sections, file format, the
     kernels it must launch, the step of Modulator.modulate alone that
@@ -1890,6 +1981,7 @@ def phase_runtime(torch, steps):
     eti2 = os.path.join(d, "in2.eti")
     frames[:RUNTIME_COMPARED * BATCH_TF * 4].tofile(eti2)
     n_frames = frames.shape[0]
+    parse = eti_parse_times(frames[:BATCH_TF * 4])
     kernels = _kernels()
     records = {}
     for name, (mod, _sec, fmt, used, step_key) in _runtime_inis().items():
@@ -1932,6 +2024,7 @@ def phase_runtime(torch, steps):
             "runtime_over_modulate": fps / modulate_fps,
             "share_of_wall": {k: v / wall_t for k, v in
                               rt_t.timings.items()},
+            "read_share": rt_t.timings["read_s"] / wall_t,
             "vs_cpu": what, "cpu_frames_compared": rt_cpu.framecount}
         records[name] = rec
         log(f"[7] runtime {name}: {n_frames} ETI frames on the card, "
@@ -1939,10 +2032,13 @@ def phase_runtime(torch, steps):
             f"CPU runtime: {what}; warm run {wall_t:.3f} s = "
             f"{fps:.1f} frames/s = {fps * ETI_FRAME_S:.2f}x real time "
             f"(cold {wall:.3f} s); modulate alone {step_ms:.3f} ms a step = "
-            f"{modulate_fps:.1f} frames/s; share of wall "
+            f"{modulate_fps:.1f} frames/s; main thread's read share "
+            f"{rec['read_share']:.3f} (ETI parsed with NumPy); share of wall "
             f"{json.dumps(rec['share_of_wall'])}")
         for path in outs.values():
             os.remove(path)
+
+    records["a_main_s16"]["eti_parse_ms"] = parse
 
     # the CLI as a subprocess on the card, INI a over RUNTIME_COMPARED
     # batches, against the in-process run of the same INI and ETI file
@@ -2091,7 +2187,8 @@ def _pinned_stats(torch) -> dict:
         return out          # a build without host memory statistics
     out.update({k: v for k, v in stats.items()
                 if k.split(".")[0] in ("active_bytes", "allocated_bytes")
-                and k.split(".")[-1] in ("current", "peak")})
+                and k.split(".")[-1] in ("current", "peak")
+                or k in ("num_host_alloc", "num_host_free")})
     return out
 
 
@@ -2522,9 +2619,137 @@ def phase_live(torch):
         f"before close {rt_t.run_s:.3f} s = {n_tf * 4 / rt_t.run_s:.1f} "
         f"frames/s = {n_tf * 4 / rt_t.run_s * ETI_FRAME_S:.2f}x real time; "
         f"share of the run {json.dumps(records[name]['share_of_run'])}")
+    records["e_pinned_soak"] = live_pinned_soak(torch, d, RecordingDevice)
     records["f_tcp_partial_paced_sdr"] = live_partial(torch)
     log(f"[8] live phase passed in {time.perf_counter() - t_phase:.1f} s")
     return records
+
+
+PINNED_QUARTERS = 16         # the soak's runs of LIVE_BATCHES batches each
+
+
+def live_pinned_soak(torch, d, device_cls) -> dict:
+    """(e) for PINNED_QUARTERS x LIVE_BATCHES batches on one runtime: ETI
+    over TCP into the s16 SDR sink over a recording device, run() a
+    quarter at a time, the pinned host memory read after each quarter
+    (_pinned_stats, the card synchronised), and the batches' pinned output
+    buffers (the runtime's _download) alive at once counted, the most of
+    them kept.  The host allocator keeps a block for reuse once its tensor
+    is gone, so its pool (allocated_bytes) rises to the most blocks in use
+    at once and stays there, where a leak adds blocks at a rate.  Fails
+    where the pool grows over the second half of the soak by more than
+    the most output blocks that were alive at once, where the pinned
+    tensors Python references grow after the first quarter, or where
+    Python still references pinned memory after close.  The allocator's
+    active_bytes counter is reported, not checked: in torch 2.11 it rises
+    by about a block each batch and passes allocated_bytes, which by the
+    allocator's own definition holds it."""
+    import weakref
+    from dabmod_tpu_torch.config import parse_ini
+    from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS, synth_eti_batch
+    from dabmod_tpu_torch.io import sdr
+    from dabmod_tpu_torch.runtime import ModRuntime
+    from live_stream import TcpServer
+    n_batches = PINNED_QUARTERS * LIVE_BATCHES
+    frames = synth_eti_batch(n_batches * BATCH_TF * 4, mode=1,
+                             subch_specs=REALISTIC_MUX_SPECS, seed=SEED + 9)
+    # a batch's s16 wire words, in the block the allocator gives them (a
+    # request rounded up to a power of two)
+    out_bytes = BATCH_TF * 196_608 * 4
+    block = 1 << (out_bytes - 1).bit_length()
+    srv = TcpServer(frames.tobytes())
+    driver = sdr.DexterDevice
+    sdr.DexterDevice = device_cls
+    kernels = _kernels()
+    alive, most = {}, [0]
+
+    def counted(download):
+        """_download, with the batches' output buffers alive counted."""
+        def f(x):
+            host = download(x)
+            if host.nbytes >= out_bytes:
+                # the storage: numpy views of the buffer outlive the tensor
+                st = host.untyped_storage()
+                key = id(st)
+                alive[key] = weakref.ref(
+                    st, lambda _, k=key: alive.pop(k, None))
+                most[0] = max(most[0], len(alive))
+            return host
+        return f
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        before = _pinned_stats(torch)
+        ini = _live_ini(d, "e_pinned_soak", f"tcp://127.0.0.1:{srv.port}",
+                        "tcp", "", "[dexteroutput]\n")
+        rt = ModRuntime(parse_ini(ini), device="cuda")
+        rt._download = counted(rt._download)
+        quarters = []
+        t0 = time.perf_counter()
+        for q in range(PINNED_QUARTERS):
+            code = rt.run(LIVE_BATCHES)
+            torch.cuda.synchronize()
+            check(code == 0, f"[8] pinned soak: quarter {q} exited {code}")
+            check(rt.framecount == (q + 1) * LIVE_BATCHES * BATCH_TF * 4,
+                  f"[8] pinned soak: {rt.framecount} ETI frames after "
+                  f"quarter {q}")
+            quarters.append(_pinned_stats(torch))
+        wall = time.perf_counter() - t0
+        rt.close()
+        del rt
+        after = _pinned_stats(torch)
+    finally:
+        sdr.DexterDevice = driver
+        srv.close()
+    counts = {k: f.launches for k, f in kernels.items()}
+    in_flight = most[0]
+    check(in_flight >= 1, "[8] pinned soak: no output buffer was counted")
+    half = PINNED_QUARTERS // 2
+    rec = {"input": "eti/tcp", "output": "sdr (recording device)",
+           "format": "s16", "output_rate": 2_048_000,
+           "batches": n_batches, "batch_tf": BATCH_TF, "launches": counts,
+           "wall_s": wall, "pinned_before": before,
+           "pinned_quarters": quarters, "pinned_after": after,
+           "output_block_bytes": block, "outputs_in_flight_max": in_flight}
+    key = "allocated_bytes.current"
+    if key in before:
+        pool = [p[key] for p in quarters]
+        active = [p.get("active_bytes.current") for p in quarters]
+        growth = pool[-1] - pool[half - 1]
+        rec["pool_growth_second_half_bytes"] = growth
+        slope = ((active[-1] - active[0]) / ((PINNED_QUARTERS - 1)
+                                            * LIVE_BATCHES)
+                 if None not in active else None)
+        rec["active_bytes_per_batch"] = slope
+        log(f"[8] pinned soak: {n_batches} batches of (e) on one runtime in "
+            f"{wall:.2f} s; at most {in_flight} batches' output buffers "
+            f"({block} B blocks) alive at once; the pinned memory the host "
+            f"allocator holds (allocated_bytes) {before[key]} B before, "
+            f"{pool} after each quarter of {LIVE_BATCHES} batches, "
+            f"{after[key]} after close, grown {growth} B over the second "
+            f"half ({half * LIVE_BATCHES} batches; bound {in_flight} "
+            f"blocks); cudaHostAlloc calls "
+            f"{[p.get('num_host_alloc') for p in quarters]}, frees "
+            f"{[p.get('num_host_free') for p in quarters]}; its "
+            f"active_bytes counter {active} ({slope} B a batch, against "
+            f"allocated_bytes {pool[-1]}); Python references "
+            f"{[p['live_pinned_bytes'] for p in quarters]} B")
+        check(growth <= in_flight * block,
+              f"[8] pinned soak: the pinned pool grew {growth} B over the "
+              f"second half ({pool}), more than the {in_flight} output "
+              f"blocks that were alive at once: it leaks pinned memory")
+    else:
+        log("[8] pinned soak: this torch has no host memory statistics; "
+            "the pinned allocator's pool is not measured")
+    held = [p["live_pinned_bytes"] for p in quarters]
+    check(max(held[1:]) <= held[0] + block,
+          f"[8] pinned soak: the pinned tensors Python references grow "
+          f"over the quarters, {held}: the runtime leaks pinned memory")
+    check(after["live_pinned_bytes"] <= before["live_pinned_bytes"] + (1 << 20),
+          f"[8] pinned soak: pinned host memory still referenced after "
+          f"close: {before} -> {after}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -3079,6 +3304,8 @@ def phase_dpd(torch, card):
 SHARD_BATCHES = 2            # consecutive batches, the state carried
 SHARD_TIMED = 10             # timed steps (and exchange sequences) a rank
 SHARD_TIMEOUT_S = 300.0      # each spawn, the ranks' start included
+SHARD_TRACED = 5             # steps a rank traces for the card's view
+SHARD_SOAK = 300             # replays of a captured step on the same inputs
 # the poly coefficients swapped in before the second batch of the DPD chain
 SHARD_SWAP = ((0.95, 0.12, -0.04, 0.01, -0.005), (0.01, -0.02, 0.004,
                                                   0.001, 0.0))
@@ -3115,7 +3342,8 @@ def _timed_steps(torch, step, n, exchanges=None) -> list:
     """Host wall ms of n calls of step(), each ended by a synchronise,
     after two warm calls.  With `exchanges` (parallel.EXCHANGES): per
     step (wall ms, collectives, all_reduce buffer bytes, exchange ms) as
-    exchange_tails counted and timed them inside that step."""
+    exchange_tails counted and timed them inside that step (none in a
+    replay of a captured step, which runs no Python)."""
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -3135,32 +3363,15 @@ def _timed_steps(torch, step, n, exchanges=None) -> list:
     return out
 
 
-def shard_rank(mesh, cases, timed):
-    """Phase 10 on one rank (run by parallel.launch.spawn): each case's two
-    global batches through ShardedModulator, the kernel launch counts and
-    exchange_tails' counts (parallel.EXCHANGES) set to 0 just before and
-    read just after, then `timed` steps, each between synchronises, with
-    the exchanges each made, counted and timed in exchange_tails.  Returns
-    per case this rank's outputs, states and stats (numpy), the counts
-    and the timed steps.  A failure raises: the launcher reports it with
-    the rank's traceback."""
-    import torch
-    import torch.distributed as dist
-    from dabmod_tpu_torch.models import Modulator, make_default_layout
-    from dabmod_tpu_torch.parallel import EXCHANGES, ShardedModulator
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    kernels = _kernels()
-    out = {}
-    for name, (specs, extra, fmt, _used, swap) in cases.items():
-        m = Modulator(make_default_layout(1, specs), _settings(fmt, **extra),
-                      device=mesh.device)
-        sm = ShardedModulator(m, mesh)
-        batches = _shard_batches(specs)
+def _shard_run(torch, sm, m, batches, swap, traced):
+    """The main path of one sharded modulator: the two global batches (the
+    swap before the second), the kernel launch counts and EXCHANGES set to
+    0 just before and read just after; with `traced` under torch.profiler
+    (traced_launches with NCCL's kernels).  Returns its record."""
+    from dabmod_tpu_torch.parallel import EXCHANGES
+
+    def path():
         state, res = sm.init_state(), []
-        for k in kernels.values():
-            k.launches = 0
-        EXCHANGES.reset()
         for i, b in enumerate(batches):
             if i and swap and not m.update_dpd("poly", swap):
                 raise RuntimeError("[10] update_dpd refused the swap")
@@ -3168,19 +3379,87 @@ def shard_rank(mesh, cases, timed):
             res.append((_to_host(o), _state_to_host(state),
                         {k: v.cpu().numpy() for k, v in stats.items()}))
         torch.cuda.synchronize()
-        counts = {k: f.launches for k, f in kernels.items()}
-        path_exchanges = (EXCHANGES.collectives, EXCHANGES.buffer_bytes)
-        st = [state]
-        b = batches[0]
+        return state, res
+    kernels = _kernels()
+    for k in kernels.values():
+        k.launches = 0
+    EXCHANGES.reset()
+    if traced:
+        (state, res), on_card = traced_launches(torch, path, nccl=True)
+    else:
+        (state, res), on_card = path(), None
+    rec = {"batches": res, "launches": {k: f.launches
+                                        for k, f in kernels.items()},
+           "path_exchanges": (EXCHANGES.collectives, EXCHANGES.buffer_bytes),
+           "on_card": on_card}
+    if sm.compiled is not None:
+        rec["graphs"] = {B: {"launches": cap.launches, "replays": cap.replays}
+                         for B, cap in sm.compiled.graphs.items()}
+    return state, rec
 
-        def step():
-            _, st[0], _ = sm.modulate(b.fic, b.subchannels, st[0])
-        dist.barrier()
-        out[name] = {"batches": res, "launches": counts,
-                     "path_exchanges": path_exchanges,
-                     "steps": _timed_steps(torch, step, timed, EXCHANGES),
-                     "device": str(mesh.device),
-                     "backend": dist.get_backend()}
+
+def shard_rank(mesh, cases, timed):
+    """Phase 10 on one rank (run by parallel.launch.spawn).  Each case's
+    two global batches through ShardedModulator: over NCCL on the card
+    twice, its step captured (ShardedModulator.compiled, a CUDA graph a
+    batch size holding the all_reduces) and eager (compiled set to None),
+    each traced with torch.profiler; over gloo eagerly, untraced.  Then
+    `timed` steps, each between synchronises: an eager step's exchanges
+    counted and timed in exchange_tails (parallel.EXCHANGES), a replay's
+    read from a trace of SHARD_TRACED steps; a captured step then replays
+    SHARD_SOAK times more on the same inputs, after which its output must
+    be unchanged and a barrier must pass (the watchdog of the NCCL
+    process group has not ended the rank).  Returns per case and kind
+    this rank's outputs, states and stats (numpy), the counts and the
+    timed steps.  A failure raises: the launcher reports it with the
+    rank's traceback."""
+    import torch
+    import torch.distributed as dist
+    from dabmod_tpu_torch.models import Modulator, make_default_layout
+    from dabmod_tpu_torch.parallel import EXCHANGES, ShardedModulator
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = dist.get_backend()
+    out = {}
+    for name, (specs, extra, fmt, _used, swap) in cases.items():
+        batches = _shard_batches(specs)
+        out[name] = {"device": str(mesh.device), "backend": backend}
+        for kind in (("captured", "eager") if backend == "nccl"
+                     else ("eager",)):
+            m = Modulator(make_default_layout(1, specs),
+                          _settings(fmt, **extra), device=mesh.device)
+            sm = ShardedModulator(m, mesh)
+            if kind == "eager":
+                sm.compiled = None
+            elif sm.compiled is None:
+                raise RuntimeError(f"[10] {name}: the sharded step over "
+                                   f"{backend} on {mesh.device} does not "
+                                   f"capture")
+            state, rec = _shard_run(torch, sm, m, batches, swap,
+                                    backend == "nccl")
+            st = [state]
+            b = batches[0]
+
+            def step():
+                _, st[0], _ = sm.modulate(b.fic, b.subchannels, st[0])
+            dist.barrier()
+            rec["steps"] = _timed_steps(torch, step, timed, EXCHANGES)
+            if backend == "nccl":
+                _, rec["traced_steps"] = traced_launches(
+                    torch, lambda: [step() for _ in range(SHARD_TRACED)],
+                    nccl=True)
+            if kind == "captured":
+                first = _bits(sm.modulate(b.fic, b.subchannels, st[0]))
+                t0 = time.perf_counter()
+                for _ in range(SHARD_SOAK):
+                    sm.modulate(b.fic, b.subchannels, st[0])
+                torch.cuda.synchronize()
+                dist.barrier()
+                rec["soak_s"] = time.perf_counter() - t0
+                rec["soak_same"] = _same_bits(
+                    first, _bits(sm.modulate(b.fic, b.subchannels, st[0])))
+            out[name][kind] = rec
+            del sm, m
     return out
 
 
@@ -3218,10 +3497,13 @@ def _shard_reference(torch, specs, extra, fmt, swap) -> dict:
             "step_ms": _timed_steps(torch, step, SHARD_TIMED)}
 
 
-def _check_shard_run(tag, ref, ranks, fmt, used, world):
+def _check_shard_run(tag, ref, ranks, fmt, used, world, kind="eager"):
     """One case of one spawn against the unsharded step: each batch's
     output and stats (compare_batch), every rank's state equal to the
-    bit, each rank's launches (its kernels once a batch, no other)."""
+    bit, each rank's launches: an eager step's its kernels once a batch,
+    no other; a captured step's each graph's warm-up and capture
+    (check_graph_launches' count), with the trace holding the warm-up and
+    each replay."""
     rel = DPD_REL if fmt == "uhd" else 3e-5
     for k, (c, cstate, cs) in enumerate(ref["batches"]):
         parts = [r["batches"][k] for r in ranks]
@@ -3245,13 +3527,133 @@ def _check_shard_run(tag, ref, ranks, fmt, used, world):
                           for x in (got, v))))
                 check(same, f"{tag} batch {k}: rank {r}'s {key} is not the "
                       f"unsharded step's")
+    names = {f.__name__: k for k, f in _kernels().items()}
     for r, rec in enumerate(ranks):
-        want = {kn: SHARD_BATCHES if kn in used else 0
-                for kn in rec["launches"]}
-        check(rec["launches"] == want, f"{tag}: rank {r} launched "
+        if kind == "eager":
+            want = {kn: SHARD_BATCHES if kn in used else 0
+                    for kn in rec["launches"]}
+            on_card = want
+        else:
+            want = dict.fromkeys(rec["launches"], 0)
+            on_card = dict(want)
+            for g in rec["graphs"].values():
+                for wrapper, n in g["launches"].items():
+                    want[names[wrapper]] += 2 * n
+                    on_card[names[wrapper]] += (1 + g["replays"]) * n
+            check(all(want[kn] > 0 for kn in used),
+                  f"{tag}: rank {r}'s graphs hold {want}, not {used}")
+        check(rec["launches"] == want, f"{tag}: rank {r} counted "
               f"{rec['launches']}, not {want}")
+        if rec["on_card"] is not None:
+            traced = {kn: rec["on_card"][kn] for kn in want}
+            check(traced == on_card, f"{tag}: rank {r} launched {traced} "
+                  f"on the card (trace), not {on_card}")
     log(f"    {tag}: every rank's state equal to the bit; launches a rank "
-        f"{ranks[0]['launches']} (world {world})")
+        f"{ranks[0]['launches']}"
+        + (f", on the card {ranks[0]['on_card']}"
+           if ranks[0]["on_card"] is not None else "") + f" (world {world})")
+
+
+def _check_captured_collectives(tag, ranks, world):
+    """A captured run's collectives: EXCHANGES counted the warm-up's and
+    the capture's (twice the eager step's, per graph), and the trace of
+    the main path holds NCCL's all-reduce kernels of the warm-up and each
+    replay, at the eager step's kernels a collective.  Returns (the
+    collectives a graph holds, NCCL kernels a collective)."""
+    eager = [r["eager"] for r in ranks]
+    cap = [r["captured"] for r in ranks]
+    per_step = eager[0]["path_exchanges"][0] // SHARD_BATCHES
+    nccl_eager = eager[0]["on_card"]["nccl_all_reduce"]
+    check(nccl_eager % (SHARD_BATCHES * per_step) == 0 if per_step else
+          nccl_eager == 0, f"{tag}: the eager steps' {nccl_eager} NCCL "
+          f"all-reduce kernels are not a whole number a collective")
+    per_coll = nccl_eager // (SHARD_BATCHES * per_step) if per_step else 0
+    for r, rec in enumerate(cap):
+        graphs = rec["graphs"]
+        check(len(graphs) == 1, f"{tag}: rank {r} captured {len(graphs)} "
+              f"graphs, not one")
+        check(rec["path_exchanges"][0] == 2 * per_step * len(graphs),
+              f"{tag}: rank {r} counted {rec['path_exchanges'][0]} "
+              f"collectives, not the warm-up's and the capture's "
+              f"{2 * per_step}")
+        want = sum(1 + g["replays"] for g in graphs.values()) \
+            * per_step * per_coll
+        check(rec["on_card"]["nccl_all_reduce"] == want,
+              f"{tag}: rank {r}'s trace holds "
+              f"{rec['on_card']['nccl_all_reduce']} NCCL all-reduce "
+              f"kernels, not the warm-up's and the replays' {want}")
+        check(all(st[1:3] == (0, 0) for st in rec["steps"]),
+              f"{tag}: rank {r}: a replay counted a collective")
+        check(rec["soak_same"], f"{tag}: rank {r}'s output changed over "
+              f"{SHARD_SOAK} replays on the same inputs")
+    return per_step, per_coll
+
+
+def _same_runs(tag, ranks):
+    """The captured step of every rank equal to its eager step, to the bit:
+    each batch's output, state and stats."""
+    for r, rec in enumerate(ranks):
+        for k, (c, e) in enumerate(zip(rec["captured"]["batches"],
+                                       rec["eager"]["batches"])):
+            check(_same_bits(_host_leaves(c), _host_leaves(e)),
+                  f"{tag}: rank {r}'s captured step differs from its eager "
+                  f"step in batch {k}")
+
+
+def _host_leaves(tree) -> list:
+    """The numpy arrays of a host record (output, state, stats) in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _host_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _host_leaves(v)]
+    return [np.asarray(tree)]
+
+
+def _shard_record(name, world, backend, ranks, kind, ref, wall):
+    """The record of one case and kind of a run, and its log line."""
+    recs = [r[kind] for r in ranks]
+    walls = [s[0] for s in recs[0]["steps"]]
+    step = statistics.median(walls)
+    run = {"case": name, "world": world, "backend": backend, "kind": kind,
+           "devices": [r["device"] for r in ranks],
+           "step_ms": step, "step_ms_range": [min(walls), max(walls)],
+           "unsharded_step_ms": statistics.median(ref["step_ms"]),
+           "launches": {k: sum(r["launches"][k] for r in recs)
+                        for k in recs[0]["launches"]},
+           "spawn_s": wall}
+    if kind == "eager":
+        made = {s[1:3] for r in recs for s in r["steps"]}
+        check(len(made) == 1, f"[10] {name} world {world} ({backend}): the "
+              f"steps made different exchanges: {sorted(made)}")
+        collectives, ex_bytes = made.pop()
+        check(all(r["path_exchanges"] == (SHARD_BATCHES * collectives,
+                                          SHARD_BATCHES * ex_bytes)
+                  for r in recs),
+              f"[10] {name} world {world} ({backend}): the main path's "
+              f"exchanges {[r['path_exchanges'] for r in recs]} are not "
+              f"{SHARD_BATCHES} timed steps'")
+        ex = statistics.median(s[3] for s in recs[0]["steps"])
+        run.update(
+            exchange_ms=ex,
+            exchange_share=statistics.median(s[3] / s[0]
+                                             for s in recs[0]["steps"]),
+            exchange_ms_ranks=[statistics.median(s[3] for s in r["steps"])
+                               for r in recs],
+            exchange_collectives=collectives,
+            exchange_buffer_bytes=ex_bytes,
+            exchange_bytes_per_rank=ex_bytes // world)
+    else:
+        run.update(
+            graphs={str(B): g for B, g in recs[0]["graphs"].items()},
+            soak_replays=SHARD_SOAK, soak_s=recs[0]["soak_s"],
+            launches_on_card={k: sum(r["on_card"][k] for r in recs)
+                              for k in _kernels()})
+    if "traced_steps" in recs[0]:
+        tr = recs[0]["traced_steps"]
+        run.update(nccl_kernels_per_step=tr["nccl_all_reduce"]
+                   / SHARD_TRACED,
+                   nccl_ms_per_step=tr["nccl_all_reduce_ms"] / SHARD_TRACED)
+    return run
 
 
 def phase_sharded(torch, card):
@@ -3264,8 +3666,6 @@ def phase_sharded(torch, card):
     # run nvcc at once (a no-op after phase 1)
     build.build(*build.SOURCES)
     cases = _shard_cases()
-    refs = {name: _shard_reference(torch, specs, extra, fmt, swap)
-            for name, (specs, extra, fmt, _u, swap) in cases.items()}
     store = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
     _TMP.append(store)
     runs = [("gloo", 4, ("realistic17_dpd_8m192",)),
@@ -3274,68 +3674,81 @@ def phase_sharded(torch, card):
     n_cards = torch.cuda.device_count()
     if n_cards >= 4:
         runs.append(("nccl", 4, ("realistic17_dpd_8m192",)))
+    names = {n for _, _, ns in runs for n in ns}
+    refs = {name: _shard_reference(torch, specs, extra, fmt, swap)
+            for name, (specs, extra, fmt, _u, swap) in cases.items()
+            if name in names}
     log(f"[10] sharded runs on {n_cards} card(s): " + "; ".join(
-        f"world {w} over {b} ({', '.join(names)})" for b, w, names in runs))
+        f"world {w} over {b} ({', '.join(ns)}; "
+        + ("captured and eager" if b == "nccl" else "eager") + ")"
+        for b, w, ns in runs))
     record = {"card": card, "cards": n_cards, "runs": []}
-    for backend, world, names in runs:
+    for backend, world, run_names in runs:
         t0 = time.perf_counter()
         res = spawn(shard_rank, world, backend=backend, device="cuda",
                     store_path=store, timeout_s=SHARD_TIMEOUT_S,
-                    args=({n: cases[n] for n in names}, SHARD_TIMED))
+                    args=({n: cases[n] for n in run_names}, SHARD_TIMED))
         wall = time.perf_counter() - t0
-        for name in names:
+        for name in run_names:
             _specs, _extra, fmt, used, _swap = cases[name]
             ranks = [r[name] for r in res]
             check(all(r["backend"] == backend for r in ranks),
                   f"[10] {name}: the ranks ran on "
                   f"{[r['backend'] for r in ranks]}, not {backend}")
             tag = f"[10] {name} world {world} ({backend})"
-            _check_shard_run(tag, refs[name], ranks, fmt, used, world)
-            # every rank's timed steps: (wall ms, collectives, buffer
-            # bytes, exchange ms), the exchanges counted in exchange_tails
-            made = {s[1:3] for r in ranks for s in r["steps"]}
-            check(len(made) == 1, f"{tag}: the steps made different "
-                  f"exchanges: {sorted(made)}")
-            collectives, ex_bytes = made.pop()
-            check(all(r["path_exchanges"] == (SHARD_BATCHES * collectives,
-                                              SHARD_BATCHES * ex_bytes)
-                      for r in ranks),
-                  f"{tag}: the main path's exchanges "
-                  f"{[r['path_exchanges'] for r in ranks]} are not "
-                  f"{SHARD_BATCHES} timed steps'")
-            walls = [s[0] for s in ranks[0]["steps"]]
-            step = statistics.median(walls)
-            ex = statistics.median(s[3] for s in ranks[0]["steps"])
-            share = statistics.median(s[3] / s[0] for s in ranks[0]["steps"])
-            launches = {k: sum(r["launches"][k] for r in ranks)
-                        for k in ranks[0]["launches"]}
-            run = {"case": name, "world": world, "backend": backend,
-                   "devices": [r["device"] for r in ranks],
-                   "step_ms": step,
-                   "step_ms_range": [min(walls), max(walls)],
-                   "unsharded_step_ms": statistics.median(
-                       refs[name]["step_ms"]),
-                   "exchange_ms": ex, "exchange_share": share,
-                   "exchange_ms_ranks": [
-                       statistics.median(s[3] for s in r["steps"])
-                       for r in ranks],
-                   "exchange_collectives": collectives,
-                   "exchange_buffer_bytes": ex_bytes,
-                   "exchange_bytes_per_rank": ex_bytes // world,
-                   "launches": launches, "spawn_s": wall}
-            record["runs"].append(run)
+            kinds = ("captured", "eager") if backend == "nccl" else \
+                ("eager",)
+            check(all(k in r for r in ranks for k in kinds),
+                  f"{tag}: a rank did not run {kinds}")
+            for kind in kinds:
+                _check_shard_run(f"{tag} {kind}", refs[name],
+                                 [r[kind] for r in ranks], fmt, used, world,
+                                 kind)
+            if backend == "nccl":
+                _same_runs(tag, ranks)
+                per_step, per_coll = _check_captured_collectives(
+                    tag, ranks, world)
+                log(f"    {tag}: captured == eager to the bit on every "
+                    f"rank; {per_step} collective(s) a step, counted at "
+                    f"the warm-up and the capture, {per_coll} NCCL "
+                    f"all-reduce kernel(s) a collective in the traces; "
+                    f"{SHARD_SOAK} more replays on the same inputs left "
+                    f"the output unchanged and the process group up")
+            runs_rec = {kind: _shard_record(name, world, backend, ranks,
+                                            kind, refs[name], wall)
+                        for kind in kinds}
+            record["runs"].extend(runs_rec.values())
+            e = runs_rec["eager"]
             log(f"[10] {name} world {world} over {backend} on "
-                f"{', '.join(sorted(set(run['devices'])))} ({card}): step "
-                f"{step:.3f} ms (host wall, median of {SHARD_TIMED}; "
-                f"unsharded {run['unsharded_step_ms']:.3f} ms), "
-                f"{run['exchange_collectives']} all_reduce a step, "
-                f"{ex_bytes} B of buffers ({ex_bytes // world} B from each "
-                f"rank), {ex:.3f} ms of the step in them ({100 * share:.1f} "
-                f"%; counted and timed in exchange_tails, CUDA events "
-                f"around each); spawn {wall:.1f} s"
+                f"{', '.join(sorted(set(e['devices'])))} ({card}): eager "
+                f"step {e['step_ms']:.3f} ms (host wall, median of "
+                f"{SHARD_TIMED}; unsharded {e['unsharded_step_ms']:.3f} "
+                f"ms), {e['exchange_collectives']} all_reduce a step, "
+                f"{e['exchange_buffer_bytes']} B of buffers "
+                f"({e['exchange_bytes_per_rank']} B from each rank), "
+                f"{e['exchange_ms']:.3f} ms of the step in them "
+                f"({100 * e['exchange_share']:.1f} %; counted and timed in "
+                f"exchange_tails, CUDA events around each); spawn "
+                f"{wall:.1f} s"
                 + ("; ranks that share a card measure correctness and "
                    "exchange cost, not scaling"
-                   if len(set(run["devices"])) < world else ""))
+                   if len(set(e["devices"])) < world else ""))
+            if "captured" in runs_rec:
+                c = runs_rec["captured"]
+                log(f"[10] {name} world {world} over {backend} ({card}): "
+                    f"captured step {c['step_ms']:.3f} ms (range "
+                    f"{c['step_ms_range'][0]:.3f}-"
+                    f"{c['step_ms_range'][1]:.3f}) against eager "
+                    f"{e['step_ms']:.3f} and unsharded "
+                    f"{c['unsharded_step_ms']:.3f} ms; NCCL all-reduce "
+                    f"kernels a step on the card: captured "
+                    f"{c['nccl_kernels_per_step']:g} "
+                    f"({c['nccl_ms_per_step']:.4f} ms), eager "
+                    f"{e['nccl_kernels_per_step']:g} "
+                    f"({e['nccl_ms_per_step']:.4f} ms) (torch.profiler, "
+                    f"{SHARD_TRACED} steps); launches on the card "
+                    f"{c['launches_on_card']}; {SHARD_SOAK} replays in "
+                    f"{c['soak_s']:.2f} s")
     log(f"[10] sharded phase passed in {time.perf_counter() - t_phase:.1f} s")
     return record
 
@@ -3390,10 +3803,14 @@ def main():
             if k.get("rate", 8_192_000) == rec["output_rate"]
             or base != "resample_poly"}
         # phase 10's launches, summed over the ranks of each run (K3 runs
-        # there at 8.192 MS/s only)
+        # there at 8.192 MS/s only): counted, and for a captured run on
+        # the card (trace)
         k["sharded_launches"] = {
-            f"{run['case']}@{run['backend']}x{run['world']}":
-            run["launches"][base] for run in sharded["runs"]
+            f"{run['case']}@{run['backend']}x{run['world']}"
+            + ("" if run["kind"] == "eager" else " captured"):
+            run["launches"][base] if run["kind"] == "eager" else
+            [run["launches"][base], run["launches_on_card"][base]]
+            for run in sharded["runs"]
             if k.get("rate", 8_192_000) == 8_192_000
             or base != "resample_poly"}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -1,9 +1,12 @@
 """Batch ETI(NI) parsing and synthesis (host-side NumPy).
 
 The port's own copy of dabmod_tpu/eti.py, with the vectorised NumPy parser
-only (the original first tries its native C++ batch parser).  A whole batch
-of 6144-byte frames is parsed at once; the ensemble layout (NST, sub-channel
-table) must be constant over a batch, and a change raises
+only.  The original first tries its native C++ batch parser; with the
+batch made from its result (contiguous sub-channels, the raw TIST word,
+MID checked) that path measured slower than this parser (PERF.md), so the
+port keeps its binding (native.parse_eti_batch) out of this path.  A
+whole batch of 6144-byte frames is parsed at once; the ensemble layout
+(NST, sub-channel table) must be constant over a batch, and a change raises
 :class:`EnsembleReconfigured` (the reference's FrameMultiplexerError restart
 path, src/DabMod.cpp:726-731).  Header layouts: src/Eti.h:50-136.
 """

@@ -24,8 +24,8 @@ def serialize_iq(iq: np.ndarray, fmt: str) -> bytes:
 def serialize_iq_count(iq: np.ndarray, fmt: str) -> tuple[bytes, int]:
     """Convert samples into the chosen interleaved format with saturation,
     matching FormatConverter semantics (src/FormatConverter.cpp:62-206;
-    C float->int conversion truncates).  dabmod_tpu's NumPy branch (its
-    native C++ converter is not part of the port).
+    C float->int conversion truncates), through the native C++ converter
+    when available (native.py), else NumPy, as dabmod_tpu's does.
 
     `iq` is either pair-domain [..., N, 2] float32 (the native layout, which
     is already interleaved I/Q when flattened) or complex."""
@@ -43,6 +43,11 @@ def serialize_iq_count(iq: np.ndarray, fmt: str) -> tuple[bytes, int]:
         interleaved = np.ascontiguousarray(x, np.float32).reshape(-1)
     if fmt in F32_FORMATS:
         return interleaved.tobytes(), 0
+    from .. import native
+    conv = native.convert(interleaved, fmt)
+    if conv is not None:
+        out, n = conv
+        return out.tobytes(), n
     if fmt == "s16":
         clipped = np.clip(interleaved, -32768.0, 32767.0)
         n = int((clipped != interleaved).sum())

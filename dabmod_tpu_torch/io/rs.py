@@ -77,9 +77,15 @@ def encode(data: bytes | np.ndarray) -> np.ndarray:
 def decode(block: np.ndarray, erasures: list[int] | None = None) -> int:
     """Errors-and-erasures decode of a 255-byte block in place.
 
-    Returns the number of corrected symbols, or -1 on failure.  The NumPy
-    decoder only (dabmod_tpu's first tries its native C++ decoder).
+    Returns the number of corrected symbols, or -1 on failure.  Delegates to
+    the native C++ decoder when available (native.py), as dabmod_tpu's does.
     """
+    from .. import native
+    block_np = np.ascontiguousarray(block, np.uint8)
+    r = native.rs_decode(block_np, erasures)
+    if r is not None:
+        block[:] = block_np
+        return r
     block = np.asarray(block)
     assert block.size == N
     data = block.astype(np.int32)

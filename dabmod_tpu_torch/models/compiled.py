@@ -1,13 +1,19 @@
 """The compiled step: Modulator.modulate on the card as CUDA graphs, the
 port's counterpart of dabmod_tpu's jax.jit(Modulator._modulate_impl,
-donate_argnums=(2,)) (its models/modulator.py:297, 741-754).
+donate_argnums=(2,)) (its models/modulator.py:297, 741-754), and the
+sharded step of parallel.ShardedModulator over NCCL, the counterpart of
+dabmod_tpu/parallel/sharding.py:232-243.
 
-One graph per batch size B, as a new shape makes JAX retrace:
+A GraphStep captures the step function it is given: the modulator's
+_modulate_impl, or ShardedModulator._sharded_impl, whose graph also holds
+the rank's all_reduces.  One graph per batch size B, as a new shape makes
+JAX retrace:
 
-* the first step of a B runs Modulator._modulate_impl once eagerly on a
+* the first step of a B runs the step function once eagerly on a
   side stream (the warm-up: it builds the kernels, fills the lazy caches
   of device tables, makes the cuFFT plans and the cuBLAS workspace of
-  that stream), then captures it on the same stream
+  that stream; for the sharded step, the collectives once more on the
+  NCCL communicator), then captures it on the same stream
   (torch.cuda.graph, capture_error_mode="thread_local": the runtime's
   other threads wait on events meanwhile);
 * every step of that B copies its inputs (ETI bytes, state) into the
@@ -37,6 +43,7 @@ One thread issues a modulator's steps.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
@@ -66,9 +73,16 @@ class Captured:
 
 
 class GraphStep:
-    """The captured steps of one Modulator, keyed by batch size (TFs)."""
+    """The captured steps of one step function, keyed by batch size (TFs).
 
-    def __init__(self):
+    `impl` is a bound method, impl(fic, subch, state, constant_gain, var_k,
+    rp), that returns (output, new state, stats): Modulator._modulate_impl
+    or ShardedModulator._sharded_impl.  It is held weakly, since its owner
+    holds this GraphStep and a cycle would keep the graphs' memory until a
+    garbage collection."""
+
+    def __init__(self, impl):
+        self._impl = weakref.WeakMethod(impl)
         self.graphs: dict[int, Captured] = {}
         self._pool = None
         self._stream = None
@@ -76,8 +90,10 @@ class GraphStep:
         self._gain_values = None    # the values they hold
 
     def step(self, m, fic, subch, state):
-        """One step of modulator m (Modulator.modulate's contract) on its
-        card: fic, subch and state are tensors there."""
+        """One step of the step function with the gains and parameters of
+        modulator m (Modulator.modulate's contract) on its card: fic, subch
+        and state are tensors there (for the sharded step, this rank's
+        TFs)."""
         rp = m._apply_swaps()
         gains = m._gain_values()
         leaves, spec = tree_flatten((fic, subch, state))
@@ -114,16 +130,17 @@ class GraphStep:
         inputs = [x.clone() for x in leaves]
         fic, subch, state = tree_unflatten(inputs, spec)
         args = (fic, subch, state, *self._gains, rp)
+        impl = self._impl()
         stream = self._stream
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            m._modulate_impl(*args)
+            impl(*args)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, pool=self._pool, stream=stream,
                                   capture_error_mode="thread_local"):
-                outputs = m._modulate_impl(*args)
+                outputs = impl(*args)
         except BaseException:
             self._stream = None     # the next capture takes a fresh stream
             raise

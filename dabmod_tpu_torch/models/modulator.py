@@ -267,7 +267,8 @@ class Modulator:
         self._staged = {}           # swaps not yet in _runtime_params
 
         # the captured steps on the card (None: the step runs eagerly)
-        self.compiled = GraphStep() if dev.type == "cuda" else None
+        self.compiled = (GraphStep(self._modulate_impl) if dev.type == "cuda"
+                         else None)
 
         self._wire_fmt = _wire_format(s)
         if self._kiss:

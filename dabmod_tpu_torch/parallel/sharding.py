@@ -28,6 +28,15 @@ Every exchange is one collective, exchange_tails.  A step makes one for
 the TI rows of every sub-channel, one for the resampler and one for
 num_clipped; EXCHANGES counts them, with their bytes and, on request,
 their time.
+
+On the card over NCCL (or alone, world 1 with no group) each rank's step
+is a CUDA graph per local batch size (models/compiled.py's GraphStep of
+ShardedModulator._sharded_impl), the counterpart of JAX's jit of the
+sharded step (dabmod_tpu/parallel/sharding.py:232-243): the graph holds
+the rank's kernels and its all_reduces, and every rank captures and
+replays the same graphs in the same order, as they run the same batches.
+gloo's all_reduce of CUDA tensors stages through the host, which a capture
+cannot hold, so gloo ranks (and CPU ranks) run the step eagerly.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from ..models import compiled
 from ..models.modulator import Modulator, resolve_device
 from ..ops import fec
 from ..ops.filters import resample
@@ -141,6 +151,18 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int,
     return make_mesh(device=dev)
 
 
+def captures(mesh: TfMesh) -> bool:
+    """Whether a ShardedModulator on this mesh replays CUDA graphs: on a
+    CUDA device over an NCCL group, or with no group at world 1.  NCCL's
+    collectives can be captured; gloo's all_reduce of CUDA tensors copies
+    through the host and cannot, so gloo ranks run the step eagerly."""
+    if mesh.device.type != "cuda":
+        return False
+    if mesh.group is None:
+        return mesh.world_size == 1
+    return dist.get_backend(mesh.group) == "nccl"
+
+
 @dataclasses.dataclass
 class ExchangeCounts:
     """What exchange_tails has done in this process since reset(): its
@@ -148,7 +170,13 @@ class ExchangeCounts:
     reset(timing=True), each one's span from its buffer's allocation to
     the reduced buffer (a pair of CUDA events recorded on the current
     stream on the card, perf_counter readings on the CPU).  A world of one
-    makes no collective and counts none."""
+    makes no collective and counts none.
+
+    It counts where a collective is issued: in an eager step, and in a
+    graph's warm-up and capture.  A replay runs no Python and counts
+    nothing; the collectives a replay runs on the card are read from a
+    profiler trace.  Timing inside a capture raises: its events would
+    time the capture, not a replay."""
     collectives: int = 0
     buffer_bytes: int = 0
     spans: list | None = None
@@ -180,6 +208,11 @@ def _mark(dev: torch.device):
     return time.perf_counter()
 
 
+def _capturing(t: torch.Tensor) -> bool:
+    """Whether the current stream of t's card is capturing a CUDA graph."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def exchange_tails(tail: torch.Tensor, mesh: TfMesh) -> torch.Tensor:
     """Every rank's `tail` (same shape and dtype on each rank) on every
     rank: [world, *tail.shape], slot r from rank r.
@@ -199,6 +232,10 @@ def exchange_tails(tail: torch.Tensor, mesh: TfMesh) -> torch.Tensor:
                                "torch.distributed")
         return tail.unsqueeze(0).clone()
     timing = EXCHANGES.spans is not None
+    if timing and _capturing(tail):
+        raise RuntimeError("EXCHANGES times collectives with events, which "
+                           "a graph capture cannot hold: reset(timing="
+                           "False) before a sharded step's first call")
     t0 = _mark(tail.device) if timing else None
     raw = tail.contiguous().reshape(-1).view(torch.uint8)
     buf = torch.zeros((mesh.world_size, raw.numel()), dtype=torch.uint8,
@@ -319,11 +356,17 @@ class ShardedModulator:
     Every rank passes the same global batch (T ETI frames, B = T/cif_count
     TFs) and copies only its own T/world frames to its device; the state
     is replicated.  Each call takes the modulator's parameters through its
-    _apply_swaps, so update_fir_taps and update_dpd on the wrapped
-    modulator reach the next sharded step (JAX's sharded step bakes them
-    in at its first trace).  The sharded step runs eagerly.
+    _apply_swaps and its gains from its live settings, so update_fir_taps,
+    update_dpd and a gain change on the wrapped modulator reach the next
+    sharded step (JAX's sharded step bakes them in at its first trace).
     The modulator is not copied or changed: the step passes the sharded
-    time interleaver and resampler to its _modulate_impl."""
+    time interleaver and resampler to its _modulate_impl.
+
+    `compiled` is this rank's GraphStep of _sharded_impl where captures(mesh)
+    holds (NCCL on the card), else None and the step runs eagerly.  It is
+    the sharded step's own: the modulator's `compiled` holds its unsharded
+    graphs, and both key their graphs by batch size.  A failed capture
+    raises."""
 
     def __init__(self, modulator: Modulator, mesh: TfMesh):
         if _indexed(modulator.device) != mesh.device:
@@ -333,6 +376,8 @@ class ShardedModulator:
         self.mesh = mesh
         self._ti = make_sharded_time_interleave(mesh)
         self._resample = shard_resampler_backend(modulator, mesh)
+        self.compiled = (compiled.GraphStep(self._sharded_impl)
+                         if captures(mesh) else None)
 
     def init_state(self):
         return self.m.init_state()
@@ -356,19 +401,35 @@ class ShardedModulator:
         output ([B/world, ...], or [2, B/world, S, C] for dexter), the
         replicated new state and this rank's per-TF stats, with
         num_clipped summed over the ranks."""
+        m = self.m
+        _, frames = self._split(fic_bytes.shape[0])
+        fic = m._bytes(fic_bytes[frames])
+        subs = tuple(m._bytes(x[frames]) for x in subch_bytes)
+        with torch.no_grad():
+            if self.compiled is not None:
+                return self.compiled.step(m, fic, subs, state)
+            return self._sharded_impl(fic, subs, state, *m._gain_args(),
+                                      m._apply_swaps())
+
+    def _sharded_impl(self, fic, subs, state, constant_gain: torch.Tensor,
+                      var_k: torch.Tensor, rp: dict):
+        """This rank's step on its ETI frames (tensors on its device), the
+        step a graph captures: the rank's tf_index and mer_index offsets,
+        _modulate_impl with the sharded couplings, the replicated new
+        state and num_clipped summed over the ranks.  The gains are 0-d
+        float32 tensors and rp the FIR taps and DPD coefficients, as
+        Modulator._modulate_impl takes them."""
         m, mesh = self.m, self.mesh
-        B, frames = self._split(fic_bytes.shape[0])
-        offset = mesh.rank * (B // mesh.world_size)
+        n = fic.shape[0] // m.p.cif_count       # this rank's TFs
+        B = n * mesh.world_size
+        offset = mesh.rank * n
         S = m.p.nb_symbols + 1
         local = dict(state, tf_index=state["tf_index"] + offset)
         if "mer_index" in state:
             local["mer_index"] = (state["mer_index"] + offset) % S
-        fic = m._bytes(fic_bytes[frames])
-        subs = tuple(m._bytes(x[frames]) for x in subch_bytes)
-        with torch.no_grad():
-            out, new, stats = m._modulate_impl(
-                fic, subs, local, *m._gain_args(), m._apply_swaps(),
-                time_interleave=self._ti, resample=self._resample)
+        out, new, stats = m._modulate_impl(
+            fic, subs, local, constant_gain, var_k, rp,
+            time_interleave=self._ti, resample=self._resample)
         new["tf_index"] = state["tf_index"] + B
         if "mer_index" in new:
             new["mer_index"] = ((state["mer_index"] + B) % S).to(torch.int32)

@@ -16,8 +16,6 @@
   torch.cuda stand-ins live here, never in the package.  Against the eager
   step the graph step is bit for bit: the same ops on the same inputs.
 """
-import contextlib
-
 import numpy as np
 import pytest
 import torch
@@ -33,6 +31,7 @@ from dabmod_tpu_torch.config import GAIN_VAR, ModSettings
 from dabmod_tpu_torch.eti import parse_eti_frames, synth_eti_batch
 from dabmod_tpu_torch.models import Modulator, compiled, make_default_layout
 from dabmod_tpu_torch.ops import ofdm_kernel
+import torch_graph_stand_in as stand_ins
 from torch_threads import one_intra_op_thread  # noqa: F401
 
 BENCH_SPECS = ((0, 24, 0x22), (48, 48, 0x02))     # bench.py's ensemble
@@ -179,48 +178,15 @@ def test_gain_tensors_match_reference(digital_gain, variance):
 # no host synchronisation inside the step
 # ---------------------------------------------------------------------------
 
-# aten ops that wait for the device or copy host data in: a capture
-# refuses them, and outside one they stall the issuing thread
-HOST_SYNC = frozenset({
-    "_local_scalar_dense", "item", "nonzero", "nonzero_numpy", "argwhere",
-    "masked_select", "_unique", "_unique2", "unique_dim",
-    "unique_consecutive", "equal", "is_nonzero", "allclose", "bincount",
-    "histc", "repeat_interleave", "lift_fresh", "lift_fresh_copy",
-    "_to_copy_cpu"})
-
-
-def _host_sync(func, args) -> bool:
-    """func is a host-syncing op, or an index op with a boolean mask (the
-    mask's nonzero runs inside the op)."""
-    name = func.overloadpacket.__name__
-    if name in HOST_SYNC:
-        return True
-    if name in ("index", "index_put", "index_put_", "_index_put_impl_"):
-        return any(isinstance(i, torch.Tensor) and i.dtype == torch.bool
-                   for i in tree_leaves(args[1]))
-    return False
-
-
-# how deep the step is inside a kernel wrapper's plain version (which
-# K1-K3 replace on the card): the checks below do not look there
-_IN_KERNEL = [0]
+_host_sync = stand_ins.host_sync
+_IN_KERNEL = stand_ins.IN_KERNEL
 
 
 @pytest.fixture
 def kernels_hidden(monkeypatch):
     """The kernel wrappers, patched to run their plain versions with
     _IN_KERNEL raised."""
-    def hide(fn):
-        def wrapped(*a, **k):
-            _IN_KERNEL[0] += 1
-            try:
-                return fn(*a, **k)
-            finally:
-                _IN_KERNEL[0] -= 1
-        wrapped.launches = fn.launches
-        return wrapped
-    for mod, name in compiled.COUNTED:
-        monkeypatch.setattr(mod, name, hide(getattr(mod, name)))
+    stand_ins.hide_kernels(monkeypatch.setattr)
 
 
 class _Ops(TorchDispatchMode):
@@ -267,71 +233,18 @@ def test_sync_check_sees_a_sync():
 # the graph step's host logic, with stand-ins for torch.cuda
 # ---------------------------------------------------------------------------
 
-class _Recorder(TorchDispatchMode):
-    def __init__(self, ops):
-        super().__init__()
-        self.ops = ops
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if _host_sync(func, args) and not _IN_KERNEL[0]:
-            raise RuntimeError(f"{func}: operation not permitted when "
-                               f"stream is capturing")
-        out = func(*args, **kwargs)
-        self.ops.append((func, args, kwargs, out))
-        return out
-
-
-class StandInGraph:
-    """torch.cuda.CUDAGraph on the CPU: capture records the aten ops, replay
-    runs them again into the tensors the capture made."""
-    made = 0
-
-    def __init__(self):
-        StandInGraph.made += 1
-        self.ops = []
-
-    def replay(self):
-        for func, args, kwargs, out in self.ops:
-            res = func(*args, **kwargs)
-            for o, r in zip(tree_leaves(out), tree_leaves(res)):
-                if (isinstance(o, torch.Tensor) and o.numel()
-                        and o.untyped_storage().data_ptr()
-                        != r.untyped_storage().data_ptr()):
-                    o.copy_(r)
-
-
-class _Stream:
-    def wait_stream(self, other):
-        pass
-
-
 @pytest.fixture
-def stand_in(monkeypatch, kernels_hidden):
-    """torch.cuda's graph API and streams on the CPU."""
-    @contextlib.contextmanager
-    def graph(g, pool=None, stream=None, capture_error_mode="global"):
-        assert pool is not None and capture_error_mode == "thread_local"
-        with _Recorder(g.ops):
-            yield
-
-    StandInGraph.made = 0
-    cuda = torch.cuda
-    monkeypatch.setattr(cuda, "CUDAGraph", StandInGraph)
-    monkeypatch.setattr(cuda, "graph", graph)
-    monkeypatch.setattr(cuda, "graph_pool_handle", lambda: ("pool",))
-    monkeypatch.setattr(cuda, "Stream", lambda device=None: _Stream())
-    monkeypatch.setattr(cuda, "current_stream",
-                        lambda device=None: _Stream())
-    monkeypatch.setattr(cuda, "stream", lambda s: contextlib.nullcontext())
-    return StandInGraph
+def stand_in(monkeypatch):
+    """torch.cuda's graph API and streams on the CPU, the kernel wrappers
+    hidden from the capture's check (tests/torch_graph_stand_in.py)."""
+    return stand_ins.install(monkeypatch.setattr)
 
 
 def _graph_modulator(name, tmp_path):
     """A CPU modulator whose modulate takes the graph step, as on the
     card."""
     m = _variant(name, tmp_path)
-    m.compiled = compiled.GraphStep()
+    m.compiled = compiled.GraphStep(m._modulate_impl)
     return m
 
 

@@ -929,6 +929,79 @@ def test_sharded_step_on_card_equals_unsharded(card, tmp_path):
             assert r[ci]["launches"] == list(launches)
 
 
+@pytest.mark.cuda
+def test_captured_sharded_step_over_nccl_on_card(card, tmp_path):
+    """One NCCL rank on the card (parallel.launch.spawn on
+    tests/torch_sharding_ranks.py's captured_streams): ShardedModulator
+    captures its step (a GraphStep of _sharded_impl holding the
+    all_reduces) and replays it; two batches of 8 TFs of the DPD chain
+    (K2, K3), of s16 (K1), and of the chain with a hot swap and a gain
+    change before the second.  On the rank the captured step equals the
+    eager sharded step to the bit, and the unsharded step on the card
+    (f32 within 1e-4*max|ref|, s16 within 1 LSB with equal num_clipped,
+    the state equal); EXCHANGES counts the warm-up's and the capture's
+    collectives and no replay's; timing the exchanges inside the capture
+    raises."""
+    import torch_sharding_ranks as R
+    from dabmod_tpu_torch.parallel.launch import spawn
+    from torch.utils._pytree import tree_leaves
+    coef = tmp_path / "poly.coef"
+    coef.write_text("1\n5\n1.0\n0.1\n-0.05\n0.02\n-0.01\n"
+                    "0.02\n-0.01\n0.005\n0.0\n0.0\n")
+    chain = ModSettings(
+        dab_mode=1, tii_enable=True, tii_comb=5, tii_pattern=31,
+        enable_cfr=True, cfr_clip=30.0, cfr_error_clip=0.1,
+        ofdm_window_overlap=10, filter_taps_file="default",
+        output_rate=4_096_000, poly_coef_file=str(coef), output="uhd",
+        device_interleave=False).normalise_for_output()
+    s16 = ModSettings(dab_mode=1, output="file",
+                      file_output_format="s16").normalise_for_output()
+    swap = {"fir_taps": np.asarray(tables.DEFAULT_FIR_TAPS,
+                                   np.float32)[::-1].copy(),
+            "poly": (np.float32((0.9, 0.12, -0.04, 0.01, -0.005)),
+                     np.float32((0.01, -0.02, 0.004, 0.001, 0.0))),
+            "digital_gain": 0.8, "gain_mode_variance": 3.0}
+    cases = [(s16, BENCH_SPECS, 11, None), (chain, BENCH_SPECS, 11, None),
+             (chain, BENCH_SPECS, 11, swap)]
+    (res,) = spawn(R.captured_streams, 1, backend="nccl", device="cuda",
+                   store_path=str(tmp_path / "store"), timeout_s=300,
+                   args=(cases, False))
+    raised, graphs = res[-1]
+    assert raised and "graph capture" in raised and graphs == 0
+    for (s, _, _, sw), rec in zip(cases, res[:-1]):
+        got, want = tree_leaves(rec["captured"]), tree_leaves(rec["eager"])
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+        assert rec["replays"] == {R.N_TF: R.BATCHES}
+        assert rec["collectives"] == [2, 0]     # one a step: warm-up, capture
+        m = R.make_modulator(s, device=card)
+        state = m.init_state()
+        for k, b in enumerate(R.eti_batches(1, BENCH_SPECS, 11)):
+            if k and sw:
+                R.apply_swap(m, sw)
+            o, state, st_ = m.modulate_eti(b, state)
+            ref, ref_state, ref_stats = R.to_numpy((o, state, st_))
+            out, st, stats = rec["captured"][k]
+            if s.output == "uhd":
+                for j in (0, 1):
+                    np.testing.assert_allclose(
+                        out[j], ref[j], rtol=0,
+                        atol=1e-4 * np.abs(ref[j]).max())
+            else:
+                d = np.abs(out.view(np.int16).astype(np.int32)
+                           - ref.view(np.int16))
+                assert d.max() <= 1
+            for key in ("cfr_clip", "cfr_errclip", "num_clipped",
+                        "mer_valid"):
+                if key in ref_stats:
+                    np.testing.assert_array_equal(stats[key], ref_stats[key])
+            for key, v in ref_state.items():
+                for a, x in zip(*(y if isinstance(y, tuple) else (y,)
+                                  for y in (st[key], v))):
+                    np.testing.assert_array_equal(a, x)
+
+
 # ---------------------------------------------------------------------------
 # the compiled step: Modulator.modulate replays a CUDA graph a batch size
 # ---------------------------------------------------------------------------

@@ -638,7 +638,7 @@ PORT_MODULES = ["dabmod_tpu_torch." + m for m in (
     "dpd.dpdce", "dpd.extract_statistic", "dpd.globalconfig",
     "dpd.heuristics", "dpd.measure", "dpd.mer", "dpd.model_lut",
     "dpd.model_poly", "dpd.server", "dpd.shoulders", "gui", "parallel",
-    "parallel.sharding", "parallel.launch")]
+    "parallel.sharding", "parallel.launch", "native")]
 
 
 def test_port_imports_no_jax():

@@ -1,6 +1,10 @@
 """The port's TF-sharded step (dabmod_tpu_torch.parallel) over gloo ranks on
 the CPU, against the port's unsharded step and against dabmod_tpu's
-ShardedModulator on the 8-device CPU mesh.
+ShardedModulator on the 8-device CPU mesh; and its captured form (a
+GraphStep of ShardedModulator._sharded_impl, as on the card over NCCL)
+over tests/torch_graph_stand_in.py's stand-ins for torch.cuda's graph
+API, against the eager sharded step (bit for bit), the unsharded step and
+dabmod_tpu, at worlds 1, 2 and 4.
 
 The ranks run in spawned processes (parallel.launch.spawn) on the rank
 functions of tests/torch_sharding_ranks.py, which import no JAX.  Each world
@@ -35,14 +39,18 @@ from dabmod_tpu.parallel import sharding as jsharding
 from dabmod_tpu_torch import tables
 from dabmod_tpu_torch.config import ModSettings
 from dabmod_tpu_torch.ops import fec
-from dabmod_tpu_torch.parallel import (EXCHANGES, ShardedModulator,
-                                       init_distributed, make_host_chip_mesh,
-                                       make_mesh, make_sharded_time_interleave)
+from dabmod_tpu_torch.parallel import (EXCHANGES, ShardedModulator, TfMesh,
+                                       captures, init_distributed,
+                                       make_host_chip_mesh, make_mesh,
+                                       make_sharded_time_interleave)
+from dabmod_tpu_torch.parallel import sharding
 from dabmod_tpu_torch.parallel.launch import spawn
+from torch.utils._pytree import tree_leaves
 
 import torch_sharding_ranks as R
 
 WORLDS = (2, 4)
+CAPTURED_WORLDS = (1, 2, 4)
 SPAWN_TIMEOUT_S = 240.0
 # (rows, sub-channel widths, seed): tl = rows / 4 = 1, 4 and 16 CIF rows a
 # rank at world 4 (one TF of TM II, one of TM I, four of TM I)
@@ -90,22 +98,40 @@ def _res_settings(route):
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory, cases):
+def captured_cases(cases):
+    """The captured sharded step's cases: name -> (port settings,
+    dabmod_tpu settings or None, swap or None).  s16 (no resampler), the
+    DPD chain (K3's route), the plain polyphase and the frequency-domain
+    routes (f32 pairs), and the chain with a hot swap and an RC gain
+    change before the second batch."""
+    swap = dict(cases["swap"][2], digital_gain=0.8, gain_mode_variance=3.0)
+    return {"s16": cases["s16"], "chain": cases["chain"],
+            "poly": (_res_settings("poly"), None, None),
+            "fft": (_res_settings("fft"), None, None),
+            "swap_gain": (cases["chain"][0], None, swap)}
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory, cases, captured_cases):
     """world -> the ranks' results of R.run_cases on every case (one spawn
-    a world, made at first use; a failed spawn fails every test of it)."""
+    a world, made at first use; a failed spawn fails every test of it).
+    World 1 runs the captured cases only."""
     made = {}
 
     def get(world):
         if world not in made:
             mod = [(s, R.BENCH_SPECS, 11, swap)
                    for s, _, swap in cases.values()]
+            cap = [(s, R.BENCH_SPECS, 11, swap)
+                   for s, _, swap in captured_cases.values()]
+            ti, res = TI_CASES, [(_res_settings(r), 7) for r in RES_RATES]
+            if world == 1:
+                ti, res, mod = [], [], []
             try:
                 made[world] = spawn(
                     R.run_cases, world, backend="gloo", device="cpu",
                     store_path=str(tmp_path_factory.mktemp("store")),
-                    timeout_s=SPAWN_TIMEOUT_S,
-                    args=(TI_CASES, [(_res_settings(r), 7)
-                                     for r in RES_RATES], mod))
+                    timeout_s=SPAWN_TIMEOUT_S, args=(ti, res, mod, cap))
             except RuntimeError as e:
                 made[world] = e
         if isinstance(made[world], Exception):
@@ -114,21 +140,26 @@ def ranks(tmp_path_factory, cases):
     return get
 
 
+def _unsharded_stream(s, swap):
+    """The port's unsharded step on each batch, the swap applied before
+    the second: (output, state, stats), numpy."""
+    m = R.make_modulator(s)
+    state, res = m.init_state(), []
+    for k, b in enumerate(R.eti_batches(m.mode, R.BENCH_SPECS, 11)):
+        if k and swap:
+            R.apply_swap(m, swap)
+        o, state, stats = m.modulate_eti(b, state)
+        res.append(R.to_numpy((o, state, stats)))
+    return res
+
+
 @pytest.fixture(scope="module")
-def unsharded(cases):
-    """name -> the port's unsharded step on each batch: (output, state,
-    stats), numpy."""
-    out = {}
-    for name, (s, _, swap) in cases.items():
-        m = R.make_modulator(s)
-        state, res = m.init_state(), []
-        for k, b in enumerate(R.eti_batches(m.mode, R.BENCH_SPECS, 11)):
-            if k and swap:
-                R.apply_swap(m, swap)
-            o, state, stats = m.modulate_eti(b, state)
-            res.append(R.to_numpy((o, state, stats)))
-        out[name] = res
-    return out
+def unsharded(cases, captured_cases):
+    """name -> the port's unsharded step on each batch of every case and
+    captured case."""
+    both = dict(cases, **captured_cases)
+    return {name: _unsharded_stream(s, swap)
+            for name, (s, _, swap) in both.items()}
 
 
 def _cat(parts, axis=0):
@@ -162,7 +193,7 @@ def _tol(s):
     """The output tolerance of a port setting."""
     if s.fft_engine == "dexter":
         return "exact"
-    if s.output != "uhd":
+    if s.output == "file" and s.file_output_format == "s16":
         return "lsb"
     return 1e-4 if s.poly_coef_file else 3e-5
 
@@ -330,7 +361,18 @@ def test_sharded_modulator_matches_unsharded(ranks, unsharded, cases,
         assert made == [_exchanges(s, world)] * world
 
 
+_JAX_STREAMS = {}
+
+
 def _jax_stream(s, world):
+    """_jax_stream_of(s, world), computed once a module run."""
+    key = (repr(s), world)
+    if key not in _JAX_STREAMS:
+        _JAX_STREAMS[key] = _jax_stream_of(s, world)
+    return _JAX_STREAMS[key]
+
+
+def _jax_stream_of(s, world):
     """dabmod_tpu's ShardedModulator on make_mesh(world) over the same two
     batches.  Its step returns the resampler carry sharded over 'tf', and
     its jit takes only a replicated state, so the state is put back
@@ -392,7 +434,159 @@ def test_hot_swap_reaches_the_sharded_step(ranks, unsharded, cases, world):
 
 
 # ---------------------------------------------------------------------------
-# case 5: meshes, splits and the device rule
+# case 5: the captured sharded step (GraphStep of _sharded_impl over the
+# stand-ins), as on the card over NCCL
+# ---------------------------------------------------------------------------
+
+CAPTURED = ("s16", "chain", "poly", "fft", "swap_gain")
+
+
+def _captured(res, name, kind):
+    """The stream of a captured case's `kind` ("captured" or "eager") run:
+    per batch (global output, each rank's state, global stats, each
+    rank's (output, state, stats))."""
+    index = CAPTURED.index(name)
+    per_rank = [r[3][index][kind] for r in res]
+    out = []
+    for k in range(R.BATCHES):
+        b = [p[k] for p in per_rank]
+        axis = 1 if isinstance(b[0][0], np.ndarray) and b[0][0].ndim == 4 \
+            else 0
+        stats = {key: (b[0][2][key] if key == "num_clipped"
+                       else np.concatenate([x[2][key] for x in b]))
+                 for key in b[0][2]}
+        out.append((_cat([x[0] for x in b], axis), [x[1] for x in b],
+                    stats, b))
+    return out
+
+
+def _same_bits(got, want):
+    g, w = tree_leaves(got), tree_leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", CAPTURED)
+@pytest.mark.parametrize("world", CAPTURED_WORLDS)
+def test_captured_sharded_step_equals_eager(ranks, world, name):
+    """Two streamed batches (a hot swap and a gain change before the
+    second in swap_gain): on every rank the captured step's output, state
+    and stats equal the eager sharded step's to the bit; one graph, made
+    at the first batch and replayed at both."""
+    res = ranks(world)
+    for r in res:
+        rec = r[3][CAPTURED.index(name)]
+        _same_bits(rec["captured"], rec["eager"])
+        assert rec["replays"] == {R.N_TF // world: R.BATCHES}
+
+
+@pytest.mark.parametrize("name", CAPTURED)
+@pytest.mark.parametrize("world", CAPTURED_WORLDS)
+def test_captured_sharded_step_matches_unsharded(ranks, unsharded,
+                                                 captured_cases, world,
+                                                 name):
+    """The captured step's global output, every rank's state and the
+    stats against the unsharded step's (with the same swap and gain
+    change), under test_sharded_modulator_matches_unsharded's
+    tolerances."""
+    s = captured_cases[name][0]
+    for (out, states, stats, _), (ref, ref_state, ref_stats) in zip(
+            _captured(ranks(world), name, "captured"), unsharded[name]):
+        _assert_close(out, ref, _tol(s))
+        for st in states:
+            _assert_state(st, ref_state)
+        _assert_stats(stats, ref_stats)
+
+
+@pytest.mark.parametrize("name", ("s16", "chain"))
+@pytest.mark.parametrize("world", CAPTURED_WORLDS)
+def test_captured_sharded_step_matches_jax(ranks, captured_cases, world,
+                                           name):
+    """test_sharded_modulator_matches_jax for the captured step: f32
+    planes within 1e-4*max|ref| after the poly DPD, s16 within 1 LSB, the
+    integer state exact, the carries within 3e-5*max|ref|, the stats."""
+    if jax.device_count() < max(CAPTURED_WORLDS):
+        pytest.skip("needs the 8-device CPU mesh")
+    port_s, jax_s, _ = captured_cases[name]
+    for (out, states, stats, _), (ref, ref_state, ref_stats) in zip(
+            _captured(ranks(world), name, "captured"),
+            _jax_stream(jax_s, world)):
+        _assert_close(out, ref, _tol(port_s))
+        _assert_state(states[0], ref_state, exact_floats=False)
+        _assert_stats(stats, ref_stats)
+
+
+@pytest.mark.parametrize("world", CAPTURED_WORLDS)
+def test_swap_and_gain_reach_the_next_replay(ranks, world):
+    """The hot swap and the gain change between two replays of one graph
+    change the second batch on every rank: it differs from the captured
+    chain's second batch without them, by more than the tolerance."""
+    got = _captured(ranks(world), "swap_gain", "captured")[1]
+    plain = _captured(ranks(world), "chain", "captured")[1]
+    for (g, _, _), (p, _, _) in zip(got[3], plain[3]):
+        assert np.abs(g[0] - p[0]).max() > 1e-2 * np.abs(p[0]).max()
+
+
+@pytest.mark.parametrize("world", CAPTURED_WORLDS)
+def test_exchanges_count_warm_up_and_capture_not_replays(ranks, cases,
+                                                         world):
+    """EXCHANGES counts the collectives where they are issued: the first
+    batch's warm-up and capture make two steps' worth, its replay and the
+    second batch's none (a replay runs no Python)."""
+    per_step = _exchanges(cases["s16"][0], world)[0] if world > 1 else 1
+    for r in ranks(world):
+        assert r[3][CAPTURED.index("s16")]["collectives"] == [
+            2 * per_step, 0]
+
+
+@pytest.mark.parametrize("world", CAPTURED_WORLDS)
+def test_timing_inside_a_capture_raises(ranks, world):
+    """EXCHANGES with timing on: the warm-up runs, the capture raises on
+    every rank (its events would time the capture, not a replay) and no
+    graph is kept."""
+    for r in ranks(world):
+        raised, graphs = r[3][-1]
+        assert raised and "graph capture" in raised and graphs == 0
+
+
+def test_a_rank_failing_its_capture_ends_the_spawn(tmp_path, cases):
+    """Rank 0's capture fails after the first collective; rank 1 waits in
+    the next one.  The spawn raises with rank 0's traceback well within
+    its timeout, and leaves no rank running."""
+    import multiprocessing as mp
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="stream is capturing"):
+        spawn(R.fail_capture_on_rank_0, 2, backend="gloo", device="cpu",
+              store_path=str(tmp_path), timeout_s=SPAWN_TIMEOUT_S,
+              args=(cases["s16"][0],))
+    assert time.monotonic() - t0 < SPAWN_TIMEOUT_S / 2
+    assert not mp.active_children()
+
+
+def test_graphs_only_over_nccl_on_the_card(monkeypatch):
+    """captures(): a CUDA mesh over NCCL, or alone at world 1 with no
+    group; never over gloo (its all_reduce of CUDA tensors copies through
+    the host) or on the CPU.  A CPU ShardedModulator runs eagerly, with
+    its own compiled attribute apart from the modulator's."""
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    group = object()
+    for backend, dev, world, want in (
+            ("nccl", cuda, 2, True), ("gloo", cuda, 2, False),
+            ("nccl", cpu, 2, False), ("gloo", cpu, 4, False)):
+        monkeypatch.setattr(sharding.dist, "get_backend",
+                            lambda g, b=backend: b)
+        assert captures(TfMesh(group, world, 0, ("tf",), dev)) is want
+    assert captures(TfMesh(None, 1, 0, ("tf",), cuda))
+    assert not captures(TfMesh(None, 1, 0, ("tf",), cpu))
+    m = R.make_modulator(ModSettings(dab_mode=1))
+    sm = ShardedModulator(m, make_mesh(device="cpu"))
+    assert sm.compiled is None and m.compiled is None
+
+
+# ---------------------------------------------------------------------------
+# case 6: meshes, splits and the device rule
 # ---------------------------------------------------------------------------
 
 def test_batch_that_does_not_split_raises():

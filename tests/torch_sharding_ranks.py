@@ -8,6 +8,7 @@ ones for its references: ETI batches of N_TF TFs (synth_eti_batch), random
 CIF bit rows for the time interleaver and random sample planes for the
 resampler.  Results go back as numpy arrays.
 """
+import copy
 import threading
 
 import numpy as np
@@ -57,15 +58,21 @@ def eti_batches(mode: int, specs, seed: int):
 
 
 def make_modulator(settings, specs=BENCH_SPECS, device="cpu") -> Modulator:
+    """A modulator on a copy of `settings` (a gain change sets the
+    modulator's settings, as the RC does)."""
     return Modulator(make_default_layout(settings.dab_mode or 1, specs),
-                     settings, device=device)
+                     copy.copy(settings), device=device)
 
 
 def apply_swap(m: Modulator, swap: dict):
-    """A hot swap between two batches: new FIR taps and poly DPD
-    coefficients, as the RC would make it."""
+    """A change between two batches, as the RC would make it: a hot swap
+    of new FIR taps and poly DPD coefficients, and with "digital_gain" or
+    "gain_mode_variance" new gain settings (`gain digital`, `gain var`)."""
     assert m.update_fir_taps(swap["fir_taps"])
     assert m.update_dpd("poly", swap["poly"])
+    for key in ("digital_gain", "gain_mode_variance"):
+        if key in swap:
+            setattr(m.settings, key, swap[key])
 
 
 def ti_streams(mesh, cases):
@@ -138,10 +145,99 @@ def modulate_streams(mesh, cases):
     return results
 
 
-def run_cases(mesh, ti_cases, res_cases, mod_cases):
-    """The three kinds of case in one spawn."""
+def _graph_step(sm, stand_ins: bool):
+    """sm with its step as a GraphStep of its _sharded_impl: set here over
+    the stand-ins (a CPU mesh runs eagerly unless a caller sets it), made
+    by ShardedModulator itself on the card over NCCL."""
+    from dabmod_tpu_torch.models import compiled
+    if stand_ins:
+        assert sm.compiled is None
+        sm.compiled = compiled.GraphStep(sm._sharded_impl)
+    assert sm.compiled is not None, "the sharded step did not capture"
+    return sm
+
+
+def captured_streams(mesh, cases, stand_ins=True):
+    """Each case (settings, specs, seed, swap or None) over BATCHES
+    streamed batches, the swap applied before the second, through two
+    ShardedModulators of this rank: one replaying a GraphStep of its
+    _sharded_impl (over tests/torch_graph_stand_in.py's stand-ins with
+    stand_ins, else on the card over NCCL), one eager.  Per case a dict:
+    "captured" and "eager", (this rank's output, the new state, this
+    rank's stats) a batch; "collectives", what sharding.EXCHANGES counted
+    in each captured batch; "replays", each graph's replays by batch
+    size.  Last, what a step with EXCHANGES timing raised in its capture
+    (the first case) and the graphs it kept."""
+    import contextlib
+
+    import torch_graph_stand_in as stand_in
+    counts = sharding.EXCHANGES
+    results = []
+    with stand_in.installed() if stand_ins else contextlib.nullcontext():
+        for settings, specs, seed, swap in cases:
+            batches = eti_batches(settings.dab_mode or 1, specs, seed)
+            rec = {}
+            for kind in ("eager", "captured"):
+                m = make_modulator(settings, specs, mesh.device)
+                sm = sharding.ShardedModulator(m, mesh)
+                if kind == "captured":
+                    _graph_step(sm, stand_ins)
+                else:
+                    sm.compiled = None
+                state, res, made = sm.init_state(), [], []
+                for k, b in enumerate(batches):
+                    if k and swap:
+                        apply_swap(m, swap)
+                    counts.reset()
+                    out, state, stats = sm.modulate(b.fic, b.subchannels,
+                                                    state)
+                    res.append(to_numpy((out, state, stats)))
+                    made.append(counts.collectives)
+                rec[kind] = res
+            rec.update(collectives=made, replays={
+                B: cap.replays for B, cap in sm.compiled.graphs.items()})
+            results.append(rec)
+        settings, specs, seed, _ = cases[0]
+        sm = _graph_step(sharding.ShardedModulator(
+            make_modulator(settings, specs, mesh.device), mesh), stand_ins)
+        b = eti_batches(settings.dab_mode or 1, specs, seed)[0]
+        counts.reset(timing=True)
+        try:
+            sm.modulate(b.fic, b.subchannels, sm.init_state())
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        finally:
+            counts.reset()
+        results.append((raised, len(sm.compiled.graphs)))
+    return results
+
+
+def run_cases(mesh, ti_cases, res_cases, mod_cases, captured_cases):
+    """The four kinds of case in one spawn."""
     return (ti_streams(mesh, ti_cases), resample_streams(mesh, res_cases),
-            modulate_streams(mesh, mod_cases))
+            modulate_streams(mesh, mod_cases),
+            captured_streams(mesh, captured_cases))
+
+
+def fail_capture_on_rank_0(mesh, settings):
+    """A captured sharded step whose capture fails on rank 0 (a host
+    synchronisation in its step), after the first collective: the other
+    ranks wait for rank 0 in the capture's next collective."""
+    import torch_graph_stand_in as stand_in
+    with stand_in.installed():
+        m = make_modulator(settings, device=mesh.device)
+        sm = _graph_step(sharding.ShardedModulator(m, mesh), True)
+        if mesh.rank == 0:
+            symbols = m._ofdm_symbols_impl
+
+            def syncing(*a, **k):
+                out = symbols(*a, **k)
+                int(out[0][0].flatten()[0] > 0)       # a host sync
+                return out
+            m._ofdm_symbols_impl = syncing
+        b = eti_batches(m.mode, BENCH_SPECS, 3)[0]
+        sm.modulate(b.fic, b.subchannels, sm.init_state())
 
 
 def fail_on_rank_0(mesh):
