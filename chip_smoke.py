@@ -211,6 +211,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    of the step, and NCCL's all-reduce kernels a step and their device
    time from a trace of 5 steps.  Ranks that share one card measure
    correctness and the exchange's cost, not scaling.
+11. bench_gpu.py's measurements in this process (its functions, at
+   fewer steps a run): the default run (bench.py's step, TM I, the
+   2-sub-channel ensemble, 24 TFs, captured and eager); --configs on
+   "base (TM-I)", "realistic17 full" and the two resampler-route rows
+   (the plain polyphase form at 2.5 MS/s, the frequency-domain form at
+   8.192 MS/s); --stages (the eager step under torch.profiler, each
+   device event under the stage range its launch was issued in) on "base
+   (TM-I)", "realistic17 full" and "resamp 8.192M".  Fails where a
+   config's first batch differs from the port on the CPU beyond
+   compare_batch's tolerances, where a stage the config runs has no
+   device time or launch, a range other than the config's is recorded,
+   K1 or K2 runs under another stage than ofdm_ifft or K3 under another
+   than resampler, "(other)" takes more than 5 % of the device time, or
+   the stages' sum differs from the same trace's device busy time by
+   more than 2 %.  Prints the phase's wall time.
 
 TF32 is switched off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False): every tolerance below assumes fp32
@@ -856,14 +871,13 @@ def traced_launches(torch, fn, nccl=False):
     keyed as _kernels()).  With nccl, also "nccl_all_reduce", NCCL's
     all-reduce kernels in the trace, and "nccl_all_reduce_ms", their summed
     device time.  Fails where the trace holds no device event."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = device_activity(torch, prof.events())
     check(len(dev) > 0, "torch.profiler traced no device event: the "
           "launches on the card are not measured")
     out = dict.fromkeys(KERNEL_SYMBOLS.values(), 0)
@@ -1025,17 +1039,19 @@ def phase_paths(torch):
     return launches, per_path, on_card
 
 
-def compare_batch(tag, fmt, g, gs, c, cs, n_out, margin, rel=3e-5):
-    """One batch of the card against the CPU: f32 within rel*max|ref|
-    (3e-5, tests/test_ofdm_kernel.py:88-89: fp32 transforms and reductions
-    in other orders; DPD_REL after the poly DPD), s16 within 1 LSB (a
-    float difference at a truncation edge) with equal num_clipped; with
-    CFR the clip counts within the threshold margin, PAPR within 1e-3 dB,
-    MER within 0.1 dB (:96) and mer_valid equal."""
+def compare_batch(tag, fmt, g, gs, c, cs, n_out, margin, rel=3e-5,
+                  n_tf=BATCH_TF):
+    """One batch of n_tf TFs of the card against the CPU: f32 within
+    rel*max|ref| (3e-5, tests/test_ofdm_kernel.py:88-89: fp32 transforms
+    and reductions in other orders; DPD_REL after the poly DPD), s16
+    within 1 LSB (a float difference at a truncation edge) with equal
+    num_clipped; with CFR the clip counts within the threshold margin,
+    PAPR within 1e-3 dB, MER within 0.1 dB (:96) and mer_valid equal.
+    Returns the samples' largest difference and its tolerance."""
     check(set(gs) == set(cs), f"{tag}: stats keys {set(gs)} != {set(cs)}")
     if fmt in ("f32", "uhd"):
         for gp in g:
-            check(gp.shape == (BATCH_TF, n_out) and gp.dtype == np.float32,
+            check(gp.shape == (n_tf, n_out) and gp.dtype == np.float32,
                   f"{tag}: {gp.shape}")
             check(bool(np.isfinite(gp).all()), f"{tag}: not finite")
         scale = max(float(np.abs(x).max()) for x in c)
@@ -1043,8 +1059,9 @@ def compare_batch(tag, fmt, g, gs, c, cs, n_out, margin, rel=3e-5):
         tol = rel * scale
         log(f"    {tag}: max abs err {err:.3e} (tol {tol:.3e})")
         check(err <= tol, f"{tag}: err {err} > {tol}")
+        res = (err, tol)
     else:
-        check(g.shape == (BATCH_TF, n_out) and g.dtype == np.int32,
+        check(g.shape == (n_tf, n_out) and g.dtype == np.int32,
               f"{tag}: {g.shape} {g.dtype}")
         d = np.abs(g.view(np.int16).astype(np.int32)
                    - c.view(np.int16).astype(np.int32)).max()
@@ -1053,8 +1070,9 @@ def compare_batch(tag, fmt, g, gs, c, cs, n_out, margin, rel=3e-5):
         check(d <= 1, f"{tag}: int16 diff {d} > 1")
         check(int(gs["num_clipped"]) == int(cs["num_clipped"]),
               f"{tag}: num_clipped differs")
+        res = (int(d), 1)
     if margin is None:
-        return
+        return res
     for key, lane in (("cfr_clip", 0), ("cfr_errclip", 1)):
         d = np.abs(gs[key].astype(np.int64) - cs[key])
         log(f"    {tag}: {key} {int(gs[key].sum())} / {int(cs[key].sum())},"
@@ -1071,15 +1089,35 @@ def compare_batch(tag, fmt, g, gs, c, cs, n_out, margin, rel=3e-5):
     log(f"    {tag}: PAPR before/after {float(cs['papr_before_cfr'][0]):.3f}"
         f"/{float(cs['papr_after_cfr'][0]):.3f} dB, MER "
         f"{float(cs['mer_db'][0]):.2f} dB: within tolerance")
+    return res
+
+
+def device_activity(torch, events) -> list:
+    """The device's kernels, copies and fills among torch.profiler events:
+    its device events less the user annotations (a record_function
+    range's span on the device timeline, from its first kernel's start to
+    its last one's end, idle gaps included)."""
+    from torch.autograd import DeviceType
+    return [e for e in events
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
+def busy_us(dev) -> float:
+    """The union of the device events' intervals, us."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + cur_e - cur_s
 
 
 def profile_steps(torch, step, n=5) -> dict:
-    """Where one step's time goes: torch.profiler over n steps; device busy
-    time (union of kernel and copy intervals), kernel launches and the
-    host's wall time per step, and the host ops and the kernels that take
-    the most device time.  Informational: where the profiler records no
-    device activity, the device numbers are reported as not measured."""
-    from torch.autograd import DeviceType
+    """Where one step's time goes: torch.profiler over n steps, summed up
+    by profile_summary."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -1090,23 +1128,28 @@ def profile_steps(torch, step, n=5) -> dict:
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return profile_summary(torch, prof.events(), wall_us, n,
+                           prof.key_averages())
+
+
+def profile_summary(torch, events, wall_us, n, averages=()) -> dict:
+    """A trace of n steps that took wall_us on the host: device busy time
+    (the union of the kernels', copies' and fills' intervals, the
+    profiler's annotations left out: device_activity), launches and the
+    host's wall time per step, and the host ops (from the trace's
+    key_averages) and the kernels that take the most device time.
+    Informational: where the trace holds no device activity, the device
+    numbers are reported as not measured."""
+    from torch.autograd import DeviceType
+    dev = device_activity(torch, events)
     if not dev:
         return {"device_time": "not measured (no device events traced)",
                 "host_wall_ms_per_step": wall_us / n / 1e3}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
+    busy = busy_us(dev)
     # device time by the host op that launched it (a kernel launched
     # through ctypes has no host op: see the kernel list)
     ops = []
-    for a in prof.key_averages():
+    for a in averages:
         us = getattr(a, "self_device_time_total", None)
         if us is None:
             us = getattr(a, "self_cuda_time_total", 0.0)
@@ -3753,6 +3796,57 @@ def phase_sharded(torch, card):
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 11: bench_gpu.py's measurements
+# ---------------------------------------------------------------------------
+
+BENCH_STEPS = 10             # steps a timed run of phase 11
+BENCH_RUNS = 5               # timed runs a step
+BENCH_CONFIGS = ("base (TM-I)", "realistic17 full", "resamp 2.5M poly",
+                 "resamp 8.192M fft")
+BENCH_STAGES = ("base (TM-I)", "realistic17 full", "resamp 8.192M")
+BENCH_STAGE_TF = 16          # tools/profile_stages.py's batch
+
+
+def phase_bench(torch):
+    """Phase 11: bench_gpu.py's default run, --configs and --stages, in
+    this process; each config's first batch checked against the CPU port
+    (bench_gpu.check_first_batch), each stage record against
+    bench_gpu.stage_problems."""
+    t0 = time.perf_counter()
+    # bench_gpu takes its helpers from this module
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    import bench_gpu
+    default = bench_gpu.bench_default(torch, BATCH_TF, BENCH_STEPS,
+                                      BENCH_RUNS)
+    log(f"[11] default run: {default['value'] / 1e6:.1f} MS/s captured "
+        f"({default['vs_baseline']:.1f}x), {default['eager_value'] / 1e6:.1f}"
+        f" MS/s eager; step {default['step_ms']['median']:.4f} ms "
+        f"(q1-q3 {default['step_ms']['q1']:.4f}-"
+        f"{default['step_ms']['q3']:.4f}), eager "
+        f"{default['eager_step_ms']['median']:.4f} ms")
+    log("[11] --configs:")
+    configs = bench_gpu.run_configs(torch, BENCH_CONFIGS, steps=BENCH_STEPS,
+                                    runs=BENCH_RUNS)
+    check([r["config"] for r in configs["configs"]] == list(BENCH_CONFIGS),
+          f"[11] --configs ran {[r['config'] for r in configs['configs']]}")
+    stages = {}
+    for name in BENCH_STAGES:
+        rec = bench_gpu.profile_stages(torch, name, BENCH_STAGE_TF)
+        stages[name] = rec
+        log(f"[11] --stages {name}: " + ", ".join(
+            f"{k} {r['device_ms']:.4f} ms / {r['launches']:g}"
+            for k, r in rec["stages"].items())
+            + f"; sum {rec['stage_sum_ms_per_step']:.4f} ms, device busy "
+            f"{rec['device_busy_ms_per_step']:.4f} ms")
+        bad = bench_gpu.stage_problems(rec)
+        check(not bad, f"[11] --stages {name}: {'; '.join(bad)}")
+    wall = time.perf_counter() - t0
+    log(f"[11] bench phase passed in {wall:.1f} s")
+    return {"default": default, "configs": configs["configs"],
+            "stages": stages, "wall_s": wall}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3782,6 +3876,7 @@ def main():
         live = phase_live(torch)
         dpd = phase_dpd(torch, card)
         sharded = phase_sharded(torch, card)
+        bench = phase_bench(torch)
     finally:
         for d in _TMP:
             shutil.rmtree(d, ignore_errors=True)
@@ -3814,6 +3909,7 @@ def main():
             if k.get("rate", 8_192_000) == 8_192_000
             or base != "resample_poly"}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"[11] {json.dumps(bench)}")
     print(json.dumps({"card": card, "kernels": kernels, "steps": steps,
                       "eager_stages": stages, "runtime": runtime,
                       "live": live, "dpd": dpd, "sharded": sharded}),

@@ -42,6 +42,7 @@ import threading
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import tables
 from ..config import ModSettings
@@ -55,6 +56,16 @@ from ..ops.filters import (PLAIN_BLOCK, PolyphasePlan, ResamplerPlan,
 from .compiled import GraphStep
 
 BASE_RATE = 2_048_000        # the modulator's native sample rate
+
+# The step's stages, each run inside a torch.profiler.record_function range
+# of its name: dabmod_tpu's jax.named_scope names (its
+# models/modulator.py), the ranges siblings as the scopes are.  A profile
+# attributes device time by them (bench_gpu.py --stages).  In a CUDA graph
+# a range is recorded when the graph is captured, never at a replay.
+STAGES = ("fec", "qpsk_map", "diff_mod", "carriers", "tii_null",
+          "dexter_quantise", "kiss_ifft", "ofdm_ifft", "cfr", "gain",
+          "guard_interval", "fir", "resampler", "dpd", "interleave_out",
+          "format_convert")
 
 log = logging.getLogger("dabmod_tpu_torch.modulator")
 
@@ -443,25 +454,30 @@ class Modulator:
         histories at once (parallel.ShardedModulator passes its
         minimal-halo form)."""
         p = self.p
-        fic_bits = fec.unpack_bits(fic_bytes)
-        fic_out = fec.fec_path(fic_bits, self._fic_prbs, self._fic_nbits,
-                               *self._fic_punct)
-        punctured = [
-            fec.fec_path(fec.unpack_bits(subch_bytes[i]), self._subch_prbs[i],
-                         self._subch_nbits[i], *self._subch_punct[i])
-            for i in range(len(self.layout.subchannels))]
-        cif_parts, new_hist = time_interleave(punctured, ti_history)
-        cif = fec.assemble_cif(cif_parts, self._subch_offsets,
-                               self._cif_filler)
-        tf_bits = fec.block_partition(fic_out, cif, p.cif_count)
-        self._t("fec", tf_bits)
+        with record_function("fec"):
+            fic_bits = fec.unpack_bits(fic_bytes)
+            fic_out = fec.fec_path(fic_bits, self._fic_prbs,
+                                   self._fic_nbits, *self._fic_punct)
+            punctured = [
+                fec.fec_path(fec.unpack_bits(subch_bytes[i]),
+                             self._subch_prbs[i], self._subch_nbits[i],
+                             *self._subch_punct[i])
+                for i in range(len(self.layout.subchannels))]
+            cif_parts, new_hist = time_interleave(punctured, ti_history)
+            cif = fec.assemble_cif(cif_parts, self._subch_offsets,
+                                   self._cif_filler)
+            tf_bits = fec.block_partition(fic_out, cif, p.cif_count)
+            self._t("fec", tf_bits)
 
-        q = ofdm.qpsk_phase_indices(tf_bits, p.nb_carriers)
-        self._t("qpsk_map", q)
-        phases = ofdm.diff_modulate(q, self._ref_q_pre_t)
-        self._t("diff_mod", phases)
-        carriers = ofdm.phases_to_carriers(phases)
-        self._t("carriers", carriers)
+        with record_function("qpsk_map"):
+            q = ofdm.qpsk_phase_indices(tf_bits, p.nb_carriers)
+            self._t("qpsk_map", q)
+        with record_function("diff_mod"):
+            phases = ofdm.diff_modulate(q, self._ref_q_pre_t)
+            self._t("diff_mod", phases)
+        with record_function("carriers"):
+            carriers = ofdm.phases_to_carriers(phases)
+            self._t("carriers", carriers)
         return carriers, tuple(new_hist)
 
     def frontend(self, fic_bytes, subch_bytes, ti_history):
@@ -484,22 +500,23 @@ class Modulator:
         B = fic_bytes.shape[0] // p.cif_count
         data_syms, new_hist = self._frontend_impl(
             fic_bytes, subch_bytes, ti_history, time_interleave)  # [B, 76, C]
-        if self._tii_vec is not None:
-            # TII in the NULL symbol of the TFs with an even index
-            # (ref: src/TII.cpp:241-243)
-            tf_idx = tf_index + torch.arange(B, dtype=torch.int32,
-                                             device=self.device)
-            insert = (tf_idx % 2 == 0).to(torch.float32)[:, None]
-            null_row = tuple(v[None, :] * insert for v in self._tii_vec)
-        else:
-            zero = torch.zeros((B, p.nb_carriers), dtype=torch.float32,
-                               device=self.device)
-            null_row = (zero, zero)
-        symbols = tuple(torch.cat([n[:, None], d], dim=1)
-                        for n, d in zip(null_row, data_syms))
-        if self._cic_taps is not None:
-            symbols = tuple(x * self._cic_taps for x in symbols)
-        self._t("tii_null", symbols)
+        with record_function("tii_null"):
+            if self._tii_vec is not None:
+                # TII in the NULL symbol of the TFs with an even index
+                # (ref: src/TII.cpp:241-243)
+                tf_idx = tf_index + torch.arange(B, dtype=torch.int32,
+                                                 device=self.device)
+                insert = (tf_idx % 2 == 0).to(torch.float32)[:, None]
+                null_row = tuple(v[None, :] * insert for v in self._tii_vec)
+            else:
+                zero = torch.zeros((B, p.nb_carriers), dtype=torch.float32,
+                                   device=self.device)
+                null_row = (zero, zero)
+            symbols = tuple(torch.cat([n[:, None], d], dim=1)
+                            for n, d in zip(null_row, data_syms))
+            if self._cic_taps is not None:
+                symbols = tuple(x * self._cic_taps for x in symbols)
+            self._t("tii_null", symbols)
         return symbols, new_hist
 
     def ofdm_symbols(self, fic_bytes, subch_bytes, ti_history, tf_index=0):
@@ -580,8 +597,9 @@ class Modulator:
         accelerator, so the device's job ends at Q1.14 carrier symbols
         [2, B, S, C] int32; host_backend does the rest
         (src/DabModulator.cpp:214-277)."""
-        out = torch.stack(self._q14(symbols))
-        self._t("dexter_quantise", out)
+        with record_function("dexter_quantise"):
+            out = torch.stack(self._q14(symbols))
+            self._t("dexter_quantise", out)
         return out
 
     def _kiss_chain(self, symbols):
@@ -589,20 +607,25 @@ class Modulator:
         bit-identical to the reference's KISS chain (per-stage rounding
         and all), into packed int32 wire words [B, tf_samples]."""
         p = self.p
-        bins = ofdm.to_bins_slices(self._q14(symbols), p.nb_carriers,
-                                   p.spacing)
-        td = kiss_fixed.kiss_fft_fixed(*bins, inverse=True)
-        self._t("kiss_ifft", td)
-        ov = self.settings.ofdm_window_overlap
-        if ov:
-            iq = kiss_fixed.guard_interval_windowed_fixed(
-                td, p.null_size, p.sym_size, ov)
-        else:
-            iq = ofdm.guard_interval_unwindowed(td, p.null_size, p.sym_size)
-        self._t("guard_interval", iq)
-        # (im << 16) | (re & 0xFFFF), written without a shift of a negative
-        # value: im * 2**16 stays within int32 for every int16 im
-        return iq[1] * 65536 + (iq[0] & 0xFFFF)
+        with record_function("kiss_ifft"):
+            bins = ofdm.to_bins_slices(self._q14(symbols), p.nb_carriers,
+                                       p.spacing)
+            td = kiss_fixed.kiss_fft_fixed(*bins, inverse=True)
+            self._t("kiss_ifft", td)
+        with record_function("guard_interval"):
+            ov = self.settings.ofdm_window_overlap
+            if ov:
+                iq = kiss_fixed.guard_interval_windowed_fixed(
+                    td, p.null_size, p.sym_size, ov)
+            else:
+                iq = ofdm.guard_interval_unwindowed(td, p.null_size,
+                                                    p.sym_size)
+            self._t("guard_interval", iq)
+        with record_function("format_convert"):
+            # (im << 16) | (re & 0xFFFF), written without a shift of a
+            # negative value: im * 2**16 stays within int32 for every int16
+            # im
+            return iq[1] * 65536 + (iq[0] & 0xFFFF)
 
     def _modulate_impl(self, fic_bytes, subch_bytes, state,
                        constant_gain: torch.Tensor, var_k: torch.Tensor,
@@ -635,54 +658,67 @@ class Modulator:
         # the hand-written OFDM kernels on the card (the plain versions on
         # the CPU): composed carrier->bin gather + IFFT, and with CFR one
         # clip / error-clip iteration and its per-symbol statistics
+        with record_function("ofdm_ifft"):
+            if s.enable_cfr:
+                td, kstats = ofdm_kernel.ofdm_cfr_backend(
+                    symbols, self._ofdm_table, s.cfr_clip, s.cfr_error_clip)
+            else:
+                td = ofdm_kernel.ofdm_backend(symbols, self._ofdm_table)
         if s.enable_cfr:
-            td, kstats = ofdm_kernel.ofdm_cfr_backend(
-                symbols, self._ofdm_table, s.cfr_clip, s.cfr_error_clip)
-            stats, new_state["mer_index"] = self._cfr_stats(
-                kstats, state["mer_index"])
-        else:
-            td = ofdm_kernel.ofdm_backend(symbols, self._ofdm_table)
+            with record_function("cfr"):
+                stats, new_state["mer_index"] = self._cfr_stats(
+                    kstats, state["mer_index"])
         self._t("ofdm_ifft", td)
 
-        gains = ofdm.compute_gain(td, s.gain_mode, var_k) * constant_gain
-        self._t("gain", gains)
-        if s.ofdm_window_overlap:
-            iq = ofdm.guard_interval_windowed(
-                td, p.null_size, p.sym_size, s.ofdm_window_overlap,
-                gains=gains)                                  # planes [B, tf]
-        else:
-            iq = ofdm.guard_interval_unwindowed(td, p.null_size, p.sym_size,
-                                                gains=gains)
+        with record_function("gain"):
+            gains = ofdm.compute_gain(td, s.gain_mode, var_k) * constant_gain
+            self._t("gain", gains)
+        with record_function("guard_interval"):
+            if s.ofdm_window_overlap:
+                iq = ofdm.guard_interval_windowed(
+                    td, p.null_size, p.sym_size, s.ofdm_window_overlap,
+                    gains=gains)                              # planes [B, tf]
+            else:
+                iq = ofdm.guard_interval_unwindowed(
+                    td, p.null_size, p.sym_size, gains=gains)
         self._t("guard_interval", iq)
 
         if "fir_taps" in rp:
-            iq = fir_filter(iq, rp["fir_taps"])
-            self._t("fir", iq)
+            with record_function("fir"):
+                iq = fir_filter(iq, rp["fir_taps"])
+                self._t("fir", iq)
 
         if self._res_route is not None:
-            iq = resample(iq, state, new_state)
+            with record_function("resampler"):
+                iq = resample(iq, state, new_state)
             self._t("resampler", iq)
 
-        if "poly_am" in rp:
-            iq = memless_poly(iq, rp["poly_am"], rp["poly_pm"])
-            self._t("dpd", iq)
-        elif "lut" in rp:
-            iq = memless_lut(iq, rp["lut"], rp["lut_scale"])
-            self._t("dpd", iq)
+        if "poly_am" in rp or "lut" in rp:
+            with record_function("dpd"):
+                if "poly_am" in rp:
+                    iq = memless_poly(iq, rp["poly_am"], rp["poly_pm"])
+                else:
+                    iq = memless_lut(iq, rp["lut"], rp["lut_scale"])
+                self._t("dpd", iq)
 
         if self._wire_fmt == "s16":
-            # packed int32 words, byte-identical to interleaved s16 pairs
-            out, stats["num_clipped"] = pack_s16_planes(iq[0], iq[1])
-            self._t("format_convert", out)
+            with record_function("format_convert"):
+                # packed int32 words, byte-identical to interleaved s16
+                # pairs
+                out, stats["num_clipped"] = pack_s16_planes(iq[0], iq[1])
+                self._t("format_convert", out)
             return out, new_state, stats
         if self._wire_fmt is None and not s.device_interleave:
             return iq, new_state, stats
-        out = planes_to_pairs(iq)
+        with record_function("interleave_out"):
+            out = planes_to_pairs(iq)
         if self._wire_fmt is not None:
-            # u8 / s8 bytes, four to an int32 word
-            out, stats["num_clipped"] = format_convert(out, self._wire_fmt)
-            out = pack_bytes(out)
-            self._t("format_convert", out)
+            with record_function("format_convert"):
+                # u8 / s8 bytes, four to an int32 word
+                out, stats["num_clipped"] = format_convert(out,
+                                                           self._wire_fmt)
+                out = pack_bytes(out)
+                self._t("format_convert", out)
         return out, new_state, stats
 
     def modulate(self, fic_bytes, subch_bytes, state):

@@ -1225,6 +1225,35 @@ def test_launch_counts_equal_replays_on_card(card):
                       for k, n in cap.launches.items()}
 
 
+@pytest.mark.cuda
+def test_bench_gpu_default_run_on_card(card):
+    """bench_gpu.py's default run, briefly: its first batch equals the
+    port on the CPU, the captured and the eager step are timed, and the
+    line carries bench.py's keys and the card."""
+    import bench_gpu
+    rec = bench_gpu.bench_default(torch, 4, steps=3, runs=5)
+    assert rec["metric"] == bench_gpu.METRIC and rec["unit"] == "samples/s"
+    assert rec["value"] > 0 and rec["eager_value"] > 0
+    assert rec["check"]["max_abs_err"] <= rec["check"]["tol"]
+    assert rec["step_ms"]["n"] == 5 and rec["step_ms"]["steps_per_run"] == 3
+    assert rec["device"]["name"] == torch.cuda.get_device_name(0)
+
+
+@pytest.mark.cuda
+def test_bench_gpu_stages_on_card(card):
+    """bench_gpu.py --stages, briefly, on the "CFR" row (K2) and the
+    "resamp 8.192M" row (K3): every stage the step opens
+    has device time and launches, K2 under ofdm_ifft, K3 under resampler,
+    "(other)" within 5 %, the stages' sum within 2 % of device busy."""
+    import bench_gpu
+    for name in ("CFR", "resamp 8.192M"):
+        rec = bench_gpu.profile_stages(torch, name, 2, steps=3)
+        assert bench_gpu.stage_problems(rec) == [], name
+        kernel = "ofdm_cfr" if name == "CFR" else "resample_poly"
+        stage = bench_gpu.KERNEL_STAGE[kernel]
+        assert rec["stages"][stage]["kernels"].get(kernel, 0) == 1
+
+
 # last in the file: a failed capture leaves its side stream unusable
 @pytest.mark.cuda
 def test_failed_capture_raises_on_card(card, monkeypatch):

@@ -10,6 +10,9 @@ tests/test_torch_compiled.py.
   (gloo's all_reduce appears as the op c10d.allreduce_) is issued again
   at each replay, and the replay waits on the Work it returns (a
   ScriptObject the dispatcher boxes), as the eager dist.all_reduce does.
+* The capture leaves out the profiler's ops (the step's stage ranges,
+  torch.profiler.record_function): a replay opens no range, as a CUDA
+  graph's replay opens none.
 * The capture refuses a host-syncing op as a CUDA capture does, outside
   the kernels' plain versions (which K1-K3 replace on the card).
 * The capture also stands for the capturing stream that
@@ -88,7 +91,11 @@ class Recorder(TorchDispatchMode):
             raise RuntimeError(f"{func}: operation not permitted when "
                                f"stream is capturing")
         out = func(*args, **kwargs)
-        self.ops.append((func, args, kwargs, out))
+        # a stage range (torch.profiler.record_function enters and exits
+        # through ops of the profiler namespace) is host bookkeeping that a
+        # graph does not hold: a replay opens no range
+        if func.namespace != "profiler":
+            self.ops.append((func, args, kwargs, out))
         return out
 
 
