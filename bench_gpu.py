@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Throughput and stage profile of dabmod_tpu_torch on one CUDA card: the
+"""Throughput and stage profile of dabmod_tpu_torch on CUDA cards: the
 port's counterpart of bench.py and of the tools that time dabmod_tpu
-(tools/bench_configs.py, tools/bench_e2e.py, tools/profile_stages.py).
+(tools/bench_configs.py, tools/bench_e2e.py, tools/profile_stages.py,
+tools/bench_scaling.py, tools/measure_ti_collectives.py).
 
     python3 bench_gpu.py [batch_tf]
     python3 bench_gpu.py --configs [batch_tf] [--only S] [--sweep L] [--json PATH]
     python3 bench_gpu.py --e2e [--out-dir DIR] [--json PATH]
     python3 bench_gpu.py --stages [CONFIG] [batch_tf] [--json PATH]
+    python3 bench_gpu.py --scaling [--worlds 1,2,4] [--config NAME] [--json PATH]
+    python3 bench_gpu.py --scaling --hosts 1,2 --chips-per-host C [...]
+    python3 bench_gpu.py --collectives [--full] [--json PATH]
 
 * The default run (bench.py): TM I, bench.py's 2-sub-channel ensemble,
   f32 planes, batch_tf=24, four input batches staged on the card.  The
@@ -41,7 +45,22 @@ port's counterpart of bench.py and of the tools that time dabmod_tpu
   records its ranges when captured, not at a replay, so only the eager
   step can be attributed.
 
-Every measurement needs a CUDA card and raises RuntimeError without one.
+* --scaling (tools/bench_scaling.py): weak scaling of the captured
+  sharded step (parallel.ShardedModulator) at 24 TFs a rank, steps back
+  to back, over --worlds (world 1 in this process, larger worlds spawned,
+  one NCCL rank a card) or --hosts H x --chips-per-host C separate
+  processes (--scaling-worker) joined by parallel.init_distributed; each
+  rank held against the unsharded step on its card; samples/s at the
+  output rate, efficiency, host issue and NCCL's device ms a step
+  (scaling_rank).  Exits 1 where a rank's output or state differs.
+* --collectives (tools/measure_ti_collectives.py): each coupling's
+  exchange in the sharded step (parallel.EXCHANGES) beside the step with
+  the state severed, on 4 NCCL ranks with four cards, else 2 gloo ranks
+  sharing the card (collectives_rank).
+
+Every measurement needs a CUDA card and raises RuntimeError without one;
+--scaling and --collectives take --device cpu --backend gloo for a
+rehearsal on the CPU (host clock: no device figure).
 The timing, profile and comparison helpers are chip_smoke.py's.  Every
 JSON printed carries the card (name, power limit from nvidia-smi, count);
 a file is written only where --json says.
@@ -58,6 +77,8 @@ import sys
 import tempfile
 import threading
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 if ROOT not in sys.path:
@@ -791,6 +812,808 @@ def bench_e2e(torch, out_dir=None, seconds=4.0, cycles=3) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# --scaling and --collectives: the multi-rank tools
+# ---------------------------------------------------------------------------
+
+SCALING_BATCH_PER_RANK = 24      # TFs a rank (TM I; bench_scaling.py's 8 is
+                                 # a CPU size)
+SCALING_BATCHES = 2              # global batches checked, the state carried
+TRACED_STEPS = 10                # steps a rank traces for NCCL's kernels
+EXCHANGE_STEPS = 5               # eager steps whose exchanges are timed
+RANK_TIMEOUT_S = 600.0           # a run of ranks, their start included
+TF_S = 0.096                     # a TM I TF on air (the JAX tools' 0.096)
+JAX_TF_SAMPLES = 196_608         # bench_scaling.py's samples a TF, always
+SHARED_NOTE = ("ranks that share a device measure the exchange's "
+               "correctness and its cost through the host, not scaling: "
+               "no efficiency")
+CPU_NOTE = "a CPU run (host clock): no device figure and no efficiency"
+
+
+def require_ranks(torch, n_ranks: int, device: str, backend: str):
+    """The devices n_ranks ranks need: a card where `device` is "cuda",
+    and over NCCL one card a rank (NCCL refuses two ranks on one card)."""
+    if torch.device(device).type != "cuda":
+        return
+    require_card(torch)
+    have = torch.cuda.device_count()
+    if backend == "nccl" and n_ranks > have:
+        raise RuntimeError(f"{n_ranks} ranks over NCCL need {n_ranks} CUDA "
+                           f"cards, one a rank; {have} present")
+
+
+def run_device_info(torch, device: str) -> dict:
+    """device_info on a card; on the CPU a record that says so."""
+    if torch.device(device).type == "cuda":
+        return device_info(torch)
+    return {"name": "cpu", "power_limit_w": None, "nvidia_smi": None,
+            "count": 0, "note": "a CPU run: no device figure"}
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _barrier(mesh):
+    if mesh.group is not None:
+        import torch.distributed as dist
+        dist.barrier(group=mesh.group)
+
+
+def time_ranked(torch, mesh, step, steps, runs, warm=2):
+    """`runs` runs of `steps` back-to-back calls of step() on this rank,
+    the ranks started together (a barrier before each run): per run the
+    step's ms (CUDA events around the run on the card; on the CPU the
+    host clock to the run's end) and the host's ms to issue a step."""
+    cuda = mesh.device.type == "cuda"
+    for _ in range(warm):
+        step()
+    _sync(torch, mesh.device)
+    dev, host = [], []
+    for _ in range(runs):
+        _barrier(mesh)
+        if cuda:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        issue = (time.perf_counter() - t0) * 1e3
+        if cuda:
+            e1.record()
+            e1.synchronize()
+            ms = e0.elapsed_time(e1)
+        else:
+            ms = (time.perf_counter() - t0) * 1e3
+        dev.append(ms / steps)
+        host.append(issue / steps)
+    return dev, host
+
+
+def _leaves(out) -> list:
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def _all_max(torch, mesh, values) -> list:
+    """values (floats) as their maximum over the ranks (one all_reduce)."""
+    t = torch.tensor(values, dtype=torch.float64, device=mesh.device)
+    if mesh.group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    return t.tolist()
+
+
+def traced_nccl(torch, mesh, step, steps):
+    """`steps` calls of step() traced after a barrier (chip_smoke
+    traced_launches): the trace's counts, and NCCL's all-reduce device ms
+    a step, the median over the steps of each one's kernels (the wait for
+    the slowest peer included; the ranks' skew in starting the trace
+    lands on the first step alone)."""
+    cs = harness()
+    _barrier(mesh)
+    _, traced = cs.traced_launches(
+        torch, lambda: [step() for _ in range(steps)], nccl=True)
+    each = traced["nccl_all_reduce_each_ms"]
+    k = len(each) // steps
+    return traced, statistics.median(sum(each[i * k:(i + 1) * k])
+                                     for i in range(steps))
+
+
+def _graphs(step) -> list:
+    """A GraphStep's graphs as (counted kernels, replays) records."""
+    return [] if step is None else [
+        {"batch_tf": B, "launches": dict(cap.launches),
+         "replays": cap.replays} for B, cap in step.graphs.items()]
+
+
+def _reference(torch, row, spec, staged, mesh):
+    """The unsharded eager step on this rank's device over the staged
+    global batches from init_state: this rank's TFs of each output and
+    the final state, on the host; at world 1 also the unsharded captured
+    step's (Modulator.modulate) times, as bench_default takes them.  The
+    modulator is freed before the sharded step runs."""
+    cs = harness()
+    dev = mesh.device
+    m, _ = build_modulator(row, spec["poly"], dev)
+    tfs = mesh.tf_slice(staged[0][0].shape[0] // m.p.cif_count)
+    st, outs = m.init_state(), []
+    for fic, subs in staged:
+        with torch.no_grad():
+            out, st, _ = m._modulate_impl(fic, subs, st, *m._gain_args(),
+                                          m._apply_swaps())
+        outs.append([x[tfs].cpu().numpy() for x in _leaves(out)])
+    ref = {"outs": outs, "state": cs._bits(st),
+           "rel": cs.DPD_REL if m.settings.poly_coef_file else 3e-5}
+    if spec["unsharded"]:
+        st = [m.init_state()]
+        i = [0]
+
+        def step():
+            fic, subs = staged[i[0] % len(staged)]
+            i[0] += 1
+            _, st[0], _ = m.modulate(fic, subs, st[0])
+        dev_ms, _ = time_ranked(torch, mesh, step, spec["steps"],
+                                spec["runs"])
+        ref["unsharded_ms"] = statistics.median(dev_ms)
+    del m
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
+def scaling_rank(mesh, spec: dict) -> dict:
+    """--scaling on one rank (parallel.launch.spawn and --scaling-worker
+    run it; world 1 runs it in the calling process).  spec: config (a row
+    of ALL_CONFIGS), batch_per_rank (TM I TFs a rank), poly (the identity
+    poly file), steps, runs, traced, unsharded (time the unsharded step
+    too).
+
+    Every rank stages the same SCALING_BATCHES global batches on its
+    device and replays them through the unsharded eager step (_reference),
+    then through the sharded step from init_state, the kernel counts set
+    to 0 just before and read just after (traced on the card): its TFs of
+    each output within 3e-5*max|ref| (DPD_REL after the poly DPD) and its
+    state equal to the bit.  Then runs of `steps` steps back to back,
+    state threaded (time_ranked), and on the card a trace of `traced`
+    steps for NCCL's kernels.  The slowest rank's median step, issue time
+    and NCCL ms and the largest difference are all-reduced (MAX), so every
+    rank returns them.  JSON-ready."""
+    import torch
+    from dabmod_tpu_torch.parallel import ShardedModulator
+    cs = harness()
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    row = find_config(spec["config"])
+    world = mesh.world_size
+    n_tf = spec["batch_per_rank"] * world * batch_scale(row[1])
+    m, specs = build_modulator(row, spec["poly"], dev)
+    batches = make_batches(row[1], specs, n_tf, range(SCALING_BATCHES))
+    staged = [on_device(torch, b, dev) for b in batches]
+    ref = _reference(torch, row, spec, staged, mesh)
+
+    sm = ShardedModulator(m, mesh)
+    kernels = cs._kernels()
+
+    def path():
+        st, outs = sm.init_state(), []
+        for fic, subs in staged:
+            out, st, _ = sm.modulate(fic, subs, st)
+            outs.append([x.cpu().numpy() for x in _leaves(out)])
+        _sync(torch, dev)
+        return st, outs
+    for k in kernels.values():
+        k.launches = 0
+    if cuda:
+        (st, outs), on_card = cs.traced_launches(torch, path, nccl=True)
+    else:
+        (st, outs), on_card = path(), None
+    launches = {k: f.launches for k, f in kernels.items()}
+    graphs = _graphs(sm.compiled)
+
+    diff = excess = 0.0
+    for got, want in zip(outs, ref["outs"]):
+        for g, w in zip(got, want):
+            d = float(np.max(np.abs(g.astype(np.float64) - w)))
+            tol = ref["rel"] * float(np.max(np.abs(w)))
+            diff = max(diff, d)
+            excess = max(excess, d / tol if tol else (0.0 if d == 0
+                                                      else np.inf))
+    state_equal = cs._same_bits(cs._bits(st), ref["state"])
+
+    state = [st]
+    i = [0]
+
+    def step():
+        fic, subs = staged[i[0] % len(staged)]
+        i[0] += 1
+        _, state[0], _ = sm.modulate(fic, subs, state[0])
+    dev_ms, host_ms = time_ranked(torch, mesh, step, spec["steps"],
+                                  spec["runs"])
+    traced = nccl_ms = None
+    if cuda:
+        traced, nccl_ms = traced_nccl(torch, mesh, step, spec["traced"])
+    step_ms = quartiles(dev_ms, spec["steps"])
+    slowest, issue, nccl, diff_max, excess_max, unequal = _all_max(
+        torch, mesh, [step_ms["median"], statistics.median(host_ms),
+                      nccl_ms or 0.0, diff, excess, float(not state_equal)])
+    return {"rank": mesh.rank, "world": world, "device": str(dev),
+            "backend": _backend(mesh), "captured": sm.compiled is not None,
+            "config": row[0], "mode": row[1], "tfs": n_tf,
+            "tf_samples_out": m.tf_samples_out,
+            "out_rate": m.settings.output_rate,
+            "batch_per_rank": spec["batch_per_rank"],
+            "clock": "cuda events" if cuda else "host clock (no card)",
+            "step_ms": step_ms, "host_issue_ms": statistics.median(host_ms),
+            "nccl_ms_per_step": nccl_ms,
+            "slowest_step_ms": slowest, "slowest_host_issue_ms": issue,
+            "slowest_nccl_ms_per_step": nccl if cuda else None,
+            "max_abs_diff": diff_max, "diff_over_tol": excess_max,
+            "tol_rel": ref["rel"], "state_equal": unequal == 0.0,
+            "elementwise_ok": excess_max <= 1.0 and unequal == 0.0,
+            "unsharded_step_ms": ref.get("unsharded_ms"),
+            "launches": launches, "graphs": graphs, "on_card": on_card,
+            "traced": traced, "traced_steps": spec["traced"],
+            "eager_calls": 0 if sm.compiled is not None
+            else SCALING_BATCHES}
+
+
+def _backend(mesh) -> str | None:
+    if mesh.group is None:
+        return None
+    import torch.distributed as dist
+    return dist.get_backend(mesh.group)
+
+
+def samples_per_s(tfs: int, tf_samples_out: int, step_ms: float) -> float:
+    """Output samples a second: the samples the config emits (a TF's
+    samples at its output rate) over the step."""
+    return tfs * tf_samples_out / (step_ms / 1e3)
+
+
+def scaling_row(ranks: list, **extra) -> dict:
+    """One world's row from its ranks' records (scaling_rank)."""
+    r0 = ranks[0]
+    world = r0["world"]
+    devices = [r["device"] for r in ranks]
+    own = (all(d.startswith("cuda") for d in devices)
+           and len(set(devices)) == world)
+    step = r0["slowest_step_ms"]
+    sps = samples_per_s(r0["tfs"], r0["tf_samples_out"], step)
+    row = {"world": world, **extra, "config": r0["config"],
+           "backend": r0["backend"], "captured": r0["captured"],
+           "devices": devices, "own_cards": own, "clock": r0["clock"],
+           "batch_per_rank": r0["batch_per_rank"], "tfs_per_step": r0["tfs"],
+           "out_rate": r0["out_rate"], "tf_samples_out": r0["tf_samples_out"],
+           "step_ms": step,
+           "step_ms_ranks": [r["step_ms"] for r in ranks],
+           "samples_per_s": sps,
+           "x_realtime": r0["tfs"] * TF_S / (step / 1e3),
+           "jax_tool_samples_per_s": r0["tfs"] * JAX_TF_SAMPLES
+           / (step / 1e3),
+           "host_issue_ms": r0["slowest_host_issue_ms"],
+           "nccl_ms_per_step": r0["slowest_nccl_ms_per_step"],
+           "max_abs_diff": r0["max_abs_diff"],
+           "diff_over_tol": r0["diff_over_tol"],
+           "state_equal": r0["state_equal"],
+           "elementwise_ok": r0["elementwise_ok"],
+           "ranks": ranks}
+    if r0["unsharded_step_ms"] is not None:
+        row["unsharded_step_ms"] = r0["unsharded_step_ms"]
+        row["unsharded_samples_per_s"] = samples_per_s(
+            r0["tfs"], r0["tf_samples_out"], r0["unsharded_step_ms"])
+    if not all(d.startswith("cuda") for d in devices):
+        row["note"] = CPU_NOTE
+    elif not own:
+        row["note"] = SHARED_NOTE
+    return row
+
+
+def with_efficiency(rows: list) -> list:
+    """Each row's weak-scaling efficiency on samples/s against the row of
+    the fewest ranks: T_N / (N x T_1) with a world-1 row
+    (bench_scaling.py:148-151), per host against the 1-host row for
+    --hosts (:222-227); None where the ranks of either row share a
+    device."""
+    base = min(rows, key=lambda r: r["world"], default=None)
+    for r in rows:
+        r["efficiency"] = (r["samples_per_s"] * base["world"]
+                           / (r["world"] * base["samples_per_s"])
+                           if base["own_cards"] and r["own_cards"]
+                           else None)
+    return rows
+
+
+def _scaling_spec(config, batch_per_rank, steps, runs, poly, traced):
+    return {"config": config, "batch_per_rank": batch_per_rank,
+            "steps": steps, "runs": runs, "poly": poly, "traced": traced,
+            "unsharded": False}
+
+
+def run_scaling(torch, worlds=(1, 2, 4), config="realistic17",
+                batch_per_rank=SCALING_BATCH_PER_RANK, steps=STEPS,
+                runs=RUNS, device="cuda", backend="nccl",
+                traced=TRACED_STEPS, timeout_s=RANK_TIMEOUT_S) -> dict:
+    """--scaling --worlds (bench_scaling.py's single_process, --chips):
+    each world of `worlds` at batch_per_rank TFs a rank, world 1 in this
+    process (no process group: a world of one exchanges nothing), every
+    other world's ranks from parallel.launch.spawn, one process a rank
+    (device "cuda": card rank % the cards).  Returns the rows, with
+    efficiency, and the device."""
+    from dabmod_tpu_torch.parallel import make_mesh
+    from dabmod_tpu_torch.parallel.launch import spawn
+    require_ranks(torch, max(worlds), device, backend)
+    card = run_device_info(torch, device)
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="bench_gpu_") as d:
+        spec = _scaling_spec(config, batch_per_rank, steps, runs,
+                             _poly_file(d), traced)
+        for world in worlds:
+            t0 = time.perf_counter()
+            if world == 1:
+                ranks = [scaling_rank(make_mesh(device=device),
+                                      dict(spec, unsharded=True))]
+            else:
+                ranks = spawn(scaling_rank, world, backend=backend,
+                              device=device, store_path=d,
+                              timeout_s=timeout_s, args=(spec,))
+            rows.append(scaling_row(ranks, launcher="spawn" if world > 1
+                                    else "in process",
+                                    wall_s=time.perf_counter() - t0))
+    return scaling_record(rows, card)
+
+
+def free_port() -> int:
+    """A free TCP port of 127.0.0.1 (bound to port 0, then closed)."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _tail(path, n=4000) -> str:
+    with open(path, errors="replace") as f:
+        return f.read()[-n:]
+
+
+def launch_workers(n_hosts, chips_per_host, spec, device, backend,
+                   timeout_s, log_dir) -> list:
+    """n_hosts * chips_per_host processes of `bench_gpu.py
+    --scaling-worker`, joined by parallel.init_distributed at a free
+    port of 127.0.0.1; their records (each worker prints its own last) in
+    rank order.  A worker that exits non-zero, or the timeout, fails the
+    call with every worker's stderr; no worker is left running."""
+    world = n_hosts * chips_per_host
+    port = free_port()
+    procs, files = [], []
+    try:
+        for r in range(world):
+            out = open(os.path.join(log_dir, f"rank{r}.out"), "w")
+            err = open(os.path.join(log_dir, f"rank{r}.err"), "w")
+            files += [out, err]
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--scaling-worker", "--rank", str(r), "--hosts",
+                 str(n_hosts), "--chips-per-host", str(chips_per_host),
+                 "--port", str(port), "--device", device, "--backend",
+                 backend, "--spec", json.dumps(spec)],
+                cwd=ROOT, stdin=subprocess.DEVNULL, stdout=out, stderr=err))
+        deadline = time.monotonic() + timeout_s
+        while True:
+            rcs = [p.poll() for p in procs]
+            failed = [r for r, rc in enumerate(rcs) if rc not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                why = (f"rank {failed[0]} exited with {rcs[failed[0]]}"
+                       if failed else f"no result after {timeout_s:g} s")
+                raise RuntimeError(
+                    f"--scaling-worker ranks of {world}: {why}" + "".join(
+                        f"\n--- rank {r} stderr:\n"
+                        + _tail(os.path.join(log_dir, f"rank{r}.err"))
+                        for r in range(world)))
+            if all(rc == 0 for rc in rcs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in files:
+            f.close()
+    recs = []
+    for r in range(world):
+        with open(os.path.join(log_dir, f"rank{r}.out")) as f:
+            lines = [ln for ln in f.read().splitlines() if ln.startswith("{")]
+        if not lines:
+            raise RuntimeError(f"--scaling-worker rank {r} printed no record")
+        recs.append(json.loads(lines[-1]))
+    return recs
+
+
+def run_hosts(torch, hosts=(1, 2, 4), chips_per_host=1, config="realistic17",
+              batch_per_rank=SCALING_BATCH_PER_RANK, steps=STEPS, runs=RUNS,
+              device="cuda", backend="nccl", traced=TRACED_STEPS,
+              timeout_s=RANK_TIMEOUT_S) -> dict:
+    """--scaling --hosts (bench_scaling.py's worker/run_config): for each H
+    of `hosts`, H x chips_per_host separate processes (launch_workers)
+    meshed as make_host_chip_mesh(H, chips_per_host).  Returns the rows,
+    with efficiency, and the device."""
+    require_ranks(torch, max(hosts) * chips_per_host, device, backend)
+    card = run_device_info(torch, device)
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="bench_gpu_") as d:
+        spec = _scaling_spec(config, batch_per_rank, steps, runs,
+                             _poly_file(d), traced)
+        for n_hosts in hosts:
+            t0 = time.perf_counter()
+            world = n_hosts * chips_per_host
+            logs = tempfile.mkdtemp(prefix=f"hosts{n_hosts}_", dir=d)
+            ranks = launch_workers(
+                n_hosts, chips_per_host, dict(spec, unsharded=world == 1,
+                                              timeout_s=timeout_s),
+                device, backend, timeout_s, logs)
+            rows.append(scaling_row(
+                ranks, hosts=n_hosts, chips_per_host=chips_per_host,
+                launcher="init_distributed",
+                wall_s=time.perf_counter() - t0))
+    return scaling_record(rows, card)
+
+
+def scaling_worker(args) -> int:
+    """--scaling-worker: one rank of run_hosts in this process: one
+    intra-op thread, parallel.init_distributed at 127.0.0.1:<port> (which
+    sets this process's card before any CUDA work), the host x chip mesh,
+    scaling_rank; prints its record as the last line."""
+    import torch
+    import torch.distributed as dist
+    from dabmod_tpu_torch.parallel import (init_distributed,
+                                           make_host_chip_mesh)
+    torch.set_num_threads(1)
+    spec = json.loads(args.spec)
+    world = args.hosts * args.chips_per_host
+    mesh = init_distributed(f"127.0.0.1:{args.port}", world, args.rank,
+                            backend=args.backend, device=args.device,
+                            timeout_s=spec["timeout_s"])
+    print(f"rank {args.rank}: joined a group of {world} over "
+          f"{args.backend} on {mesh.device}", file=sys.stderr, flush=True)
+    try:
+        rec = scaling_rank(make_host_chip_mesh(
+            args.hosts, args.chips_per_host, device=mesh.device), spec)
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+SCALING_METRIC = ("weak scaling: output samples/s of the sharded step, a "
+                  "fixed batch a rank, steps back to back")
+
+
+def scaling_record(rows, card) -> dict:
+    """--scaling's record: the rows with their efficiency, each printed."""
+    for r in with_efficiency(rows):
+        print_scaling_row(r)
+    return {"metric": SCALING_METRIC, "rows": rows, "device": card}
+
+
+def print_scaling_row(r):
+    eff = "n/a" if r.get("efficiency") is None else f"{r['efficiency']:.3f}"
+    print(f"world={r['world']} ({r['launcher']}, {r['backend']}, "
+          f"{'captured' if r['captured'] else 'eager'}) "
+          f"{r['samples_per_s'] / 1e6:.1f} MS/s, step {r['step_ms']:.4f} ms "
+          f"(slowest rank), issue {r['host_issue_ms']:.4f} ms, NCCL ms "
+          f"{_num(r['nccl_ms_per_step'])}; efficiency={eff}; output="
+          + ("ok" if r["elementwise_ok"] else "MISMATCH")
+          + f" (max_abs_diff={r['max_abs_diff']:.3g})"
+          + (f"; {r['note']}" if "note" in r else ""), flush=True)
+
+
+# measure_ti_collectives.py's configurations (:150-168): name, ensemble,
+# ModSettings keywords (the poly file added by collective_configs), global
+# TFs.  "realistic17 full" is the JAX tool's (4.096 MS/s, K3), not the
+# --configs row of that name, and writes s16 words where the JAX tool
+# writes f32 planes: only an integer format counts num_clipped, so only
+# there does the sharded step exchange it.
+COLLECTIVE_CONFIGS = (
+    ("base 2sub", "bench", {}, 16),
+    ("realistic17 full", "realistic",
+     dict(filter_taps_file="default", ofdm_window_overlap=32,
+          enable_cfr=True, cfr_clip=12.0, cfr_error_clip=3.0,
+          tii_enable=True, output_rate=4_096_000,
+          poly_coef_file="__builtin_poly__", output="file",
+          file_output_format="s16"), 24),
+)
+
+
+def collective_configs(full: bool) -> list:
+    """--collectives' configurations: "base 2sub", and with --full
+    "realistic17 full" (COLLECTIVE_CONFIGS)."""
+    return list(COLLECTIVE_CONFIGS[:2 if full else 1])
+
+
+def jax_ti_payload(widths, n_rows: int, world: int) -> list:
+    """The collectives dabmod_tpu's sharded time interleaver puts into its
+    compiled step for a batch of n_rows CIF rows over `world` devices, as
+    its source writes them (dabmod_tpu/parallel/sharding.py:113-148), with
+    the bytes of their int32 bits: per sub-channel of n bits a CIF,
+    ceil(15/tl) collective-permutes of its last min(tl, 15) rows (tl =
+    n_rows/world rows a device), and one all-reduce of every sub-channel's
+    [15, n] history as one tuple.  measure_ti_collectives.py counts that
+    tuple's bytes as 0 (it reads the result type up to its first "(")."""
+    if world == 1 or n_rows % world:
+        return []
+    tl = n_rows // world
+    hops, halo = -(-15 // tl), min(tl, 15)
+    out = [{"kind": "collective-permute", "shape": [halo, n],
+            "bytes": 4 * halo * n} for n in widths for _ in range(hops)]
+    out.append({"kind": "all-reduce", "shape": [[15, n] for n in widths],
+                "bytes": sum(4 * 15 * n for n in widths)})
+    return out
+
+
+def _exchange_record(counts) -> dict:
+    """parallel.EXCHANGES' couplings as a JSON-ready record."""
+    return {name: {"collectives": c.collectives,
+                   "buffer_bytes": c.buffer_bytes,
+                   "tail_shape": list(c.tail_shape), "dtype": c.dtype,
+                   "ms": c.ms() if c.spans is not None else None}
+            for name, c in counts.couplings.items()}
+
+
+def collectives_rank(mesh, spec: dict) -> list:
+    """--collectives on one rank (run by parallel.launch.spawn).  For each
+    configuration of spec["configs"] (collective_configs), one global
+    batch on this rank's device, each step from init_state as the JAX
+    tool's steps are, the kernel counts set to 0 before and read after:
+
+    * EXCHANGE_STEPS eager sharded steps (ShardedModulator._sharded_impl),
+      each with parallel.EXCHANGES reset(timing=True): per coupling its
+      collectives, buffer bytes, tail and ms;
+    * the eager sharded step timed back to back (time_ranked), and where
+      the sharded step captures (NCCL), its graph: EXCHANGES counted at its
+      warm-up and capture, its replays timed back to back and traced for
+      NCCL's kernels;
+    * the severed step (measure_ti_collectives.py's t_nostate): this
+      rank's TFs through m._modulate_impl from init_state with no exchange,
+      outputs discarded, eager and (on the card) captured under a
+      GraphStep of its own, timed the same way.
+
+    Returns a JSON-ready record a configuration."""
+    import torch
+    from dabmod_tpu_torch.config import ModSettings
+    from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
+    from dabmod_tpu_torch.models import Modulator, compiled, \
+        make_default_layout
+    from dabmod_tpu_torch.parallel import EXCHANGES, ShardedModulator
+    cs = harness()
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = cs._kernels()
+    out = []
+    for name, ensemble, kw, n_tf in spec["configs"]:
+        specs = REALISTIC_MUX_SPECS if ensemble == "realistic" \
+            else BENCH_SPECS
+        kw = dict(kw)
+        if kw.get("poly_coef_file") == "__builtin_poly__":
+            kw["poly_coef_file"] = spec["poly"]
+        s = ModSettings(dab_mode=1, device_interleave=False, **kw)
+        if s.output == "file":
+            s.normalise_for_output()
+        m = Modulator(make_default_layout(1, specs), s, device=dev)
+        sm = ShardedModulator(m, mesh)
+        (batch,) = make_batches(1, specs, n_tf, (0,))
+        fic, subs = on_device(torch, batch, dev)
+        _, frames = sm._split(fic.shape[0])
+        fic_l, subs_l = fic[frames], tuple(x[frames] for x in subs)
+        st0 = m.init_state()
+        calls = [0]
+
+        def sharded_eager():
+            calls[0] += 1
+            with torch.no_grad():
+                sm._sharded_impl(fic_l, subs_l, st0, *m._gain_args(),
+                                 m._apply_swaps())
+
+        def severed_eager():
+            calls[0] += 1
+            with torch.no_grad():
+                m._modulate_impl(fic_l, subs_l, st0, *m._gain_args(),
+                                 m._apply_swaps())
+
+        def timed(step):
+            dev_ms, host = time_ranked(torch, mesh, step, spec["steps"],
+                                       spec["runs"])
+            return {"ms": statistics.median(dev_ms),
+                    "issue_ms": statistics.median(host)}
+
+        for k in kernels.values():
+            k.launches = 0
+        per_step = []
+        for i in range(2 + EXCHANGE_STEPS):
+            EXCHANGES.reset(timing=True)
+            sharded_eager()
+            _sync(torch, dev)
+            per_step.append(_exchange_record(EXCHANGES))
+        EXCHANGES.reset()
+        per_step = per_step[2:]          # the first two warm up
+        couplings = {}
+        for cname, c in per_step[0].items():
+            couplings[cname] = dict(
+                c, ms=statistics.median(p[cname]["ms"] for p in per_step),
+                same_every_step=all(
+                    {k: v for k, v in p[cname].items() if k != "ms"}
+                    == {k: v for k, v in c.items() if k != "ms"}
+                    for p in per_step))
+        rec = {"config": name, "world": mesh.world_size, "rank": mesh.rank,
+               "device": str(dev), "backend": _backend(mesh),
+               "batch_tf": n_tf, "subchannel_ti_bits": list(
+                   m._subch_ti_bits), "resampler_route": m._res_route,
+               "couplings": couplings,
+               "eager": timed(sharded_eager)}
+        graphs = []
+        if sm.compiled is not None:
+            def sharded_captured():
+                sm.compiled.step(m, fic_l, subs_l, st0)
+            EXCHANGES.reset()
+            sharded_captured()
+            rec["captured_exchanges"] = _exchange_record(EXCHANGES)
+            graphs += _graphs(sm.compiled)
+            rec["captured"] = timed(sharded_captured)
+            rec["traced"], rec["nccl_ms_per_step"] = traced_nccl(
+                torch, mesh, sharded_captured, spec["traced"])
+        rec["severed_eager"] = timed(severed_eager)
+        if cuda:
+            severed = compiled.GraphStep(m._modulate_impl)
+
+            def severed_captured():
+                severed.step(m, fic_l, subs_l, st0)
+            rec["severed_captured"] = timed(severed_captured)
+            graphs += _graphs(severed)
+        rec.update(launches={k: f.launches for k, f in kernels.items()},
+                   graphs=graphs, eager_calls=calls[0],
+                   traced_steps=spec["traced"])
+        out.append(rec)
+        del sm, m
+        _sync(torch, dev)
+    return out
+
+
+def collectives_summary(ranks: list) -> list:
+    """A configuration's record from its ranks' (collectives_rank): rank
+    0's couplings (every rank's tail is the same), per coupling its
+    collectives and buffer bytes a step, each rank's tail, the ring
+    all_reduce's traffic through each rank (2 (world-1)/world x the
+    buffer), the eager ms (slowest rank); the step's total bytes and
+    their rate at real time (measure_ti_collectives.py:106, 135); the
+    sharded and severed steps' ms (slowest rank), and the JAX step's TI
+    payload beside."""
+    out = []
+    for recs in zip(*ranks):
+        r0 = recs[0]
+        world = r0["world"]
+        couplings = {}
+        for cname, c in r0["couplings"].items():
+            tail = int(np.prod(c["tail_shape"], dtype=np.int64))
+            couplings[cname] = {
+                "collectives_per_step": c["collectives"],
+                "tail_shape": c["tail_shape"], "dtype": c["dtype"],
+                "tail_elements": tail,
+                "tail_bytes": c["buffer_bytes"] // (world
+                                                    * c["collectives"]),
+                "buffer_bytes_per_step": c["buffer_bytes"],
+                "ring_bytes_per_rank": 2 * (world - 1) * c["buffer_bytes"]
+                / world,
+                "eager_ms": max(r["couplings"][cname]["ms"] for r in recs),
+                "same_every_step": all(r["couplings"][cname]
+                                       ["same_every_step"] for r in recs)}
+        total = sum(c["buffer_bytes_per_step"] for c in couplings.values())
+
+        def slowest(key):
+            return (max(r[key]["ms"] for r in recs) if key in r0 else None)
+        step, severed = slowest("captured"), slowest("severed_captured")
+        n_rows = r0["batch_tf"] * 4
+        jax = jax_ti_payload(r0["subchannel_ti_bits"], n_rows, world)
+        devices = [r["device"] for r in recs]
+        rec = {"config": r0["config"], "world": world,
+               "backend": r0["backend"], "devices": devices,
+               "shared_device": len(set(devices)) < world,
+               "batch_tf": r0["batch_tf"],
+               "resampler_route": r0["resampler_route"],
+               "couplings": couplings,
+               "total_buffer_bytes_per_step": total,
+               "mb_per_s_realtime": total / (r0["batch_tf"] * TF_S) / 1e6,
+               "eager_step_ms": slowest("eager"),
+               "captured_step_ms": slowest("captured"),
+               "severed_eager_ms": slowest("severed_eager"),
+               "severed_captured_ms": slowest("severed_captured"),
+               "state_carry_upper_bound_ms": {
+                   "eager": slowest("eager") - slowest("severed_eager"),
+                   "captured": (step - severed if "captured" in r0
+                                else None)},
+               "nccl_ms_per_step": (max(r["nccl_ms_per_step"] for r in recs)
+                                    if "nccl_ms_per_step" in r0 else None),
+               "jax_ti_payload": jax,
+               "jax_ti_payload_bytes": sum(c["bytes"] for c in jax),
+               "ranks": list(recs)}
+        if not all(d.startswith("cuda") for d in devices):
+            rec["note"] = CPU_NOTE
+        elif rec["shared_device"]:
+            rec["note"] = SHARED_NOTE
+        out.append(rec)
+    return out
+
+
+def run_collectives(torch, full=False, world=None, backend=None,
+                    device="cuda", steps=STEPS, runs=RUNS,
+                    traced=TRACED_STEPS, configs=None,
+                    timeout_s=RANK_TIMEOUT_S) -> dict:
+    """--collectives [--full] (measure_ti_collectives.py): the sharded
+    step's exchanges per coupling on `world` ranks from
+    parallel.launch.spawn.  By default world 4 over NCCL where there are
+    four cards, else 2 gloo ranks sharing the card (labelled so);
+    `configs` replaces collective_configs(full)."""
+    from dabmod_tpu_torch.parallel.launch import spawn
+    if torch.device(device).type == "cuda":
+        require_card(torch)
+        four = torch.cuda.device_count() >= 4
+    else:
+        four = False
+    world = world or (4 if four else 2)
+    backend = backend or ("nccl" if four else "gloo")
+    if world < 2:
+        raise ValueError("--collectives measures exchanges: 2 ranks or more")
+    require_ranks(torch, world, device, backend)
+    card = run_device_info(torch, device)
+    with tempfile.TemporaryDirectory(prefix="bench_gpu_") as d:
+        spec = {"configs": configs or collective_configs(full),
+                "poly": _poly_file(d), "steps": steps, "runs": runs,
+                "traced": traced}
+        t0 = time.perf_counter()
+        ranks = spawn(collectives_rank, world, backend=backend,
+                      device=device, store_path=d, timeout_s=timeout_s,
+                      args=(spec,))
+        wall = time.perf_counter() - t0
+    recs = collectives_summary(ranks)
+    for r in recs:
+        print_collectives(r)
+    return {"configs": recs, "world": world, "backend": backend,
+            "spawn_s": wall, "device": card}
+
+
+def print_collectives(r):
+    """measure_ti_collectives.py's report, the port's beside JAX's."""
+    print(f"[{r['config']}] world {r['world']} over {r['backend']} on "
+          f"{', '.join(sorted(set(r['devices'])))}, {r['batch_tf']} TFs:")
+    for name, c in r["couplings"].items():
+        print(f"  {name:16s} {c['collectives_per_step']} all_reduce, tail "
+              f"{c['tail_shape']} {c['dtype']} ({c['tail_elements']} "
+              f"elements), buffer {c['buffer_bytes_per_step']} B, ring "
+              f"{c['ring_bytes_per_rank']:.0f} B a rank, eager "
+              f"{c['eager_ms']:.4f} ms")
+    jax = r["jax_ti_payload"]
+    hops = sum(c["bytes"] for c in jax[:-1])
+    print(f"  total {r['total_buffer_bytes_per_step']} B a step "
+          f"({r['mb_per_s_realtime']:.2f} MB/s at real time); JAX's TI "
+          f"(its source): {len(jax) - 1} collective-permutes ({hops} B) "
+          f"and an all-reduce of the new histories "
+          f"({r['jax_ti_payload_bytes'] - hops} B, counted as 0 by "
+          f"measure_ti_collectives.py); the port: one all_reduce of world "
+          f"x tail bytes for every sub-channel together")
+    bound = r["state_carry_upper_bound_ms"]
+    print(f"  step ms: eager {_num(r['eager_step_ms'])}, captured "
+          f"{_num(r['captured_step_ms'])}; severed: eager "
+          f"{_num(r['severed_eager_ms'])}, captured "
+          f"{_num(r['severed_captured_ms'])}; the state carry costs at "
+          f"most {_num(bound['eager'])} eager, {_num(bound['captured'])} "
+          f"captured; NCCL a replay {_num(r['nccl_ms_per_step'])}"
+          + (f"; {r['note']}" if "note" in r else ""), flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
@@ -800,6 +1623,10 @@ def main(argv=None):
     mode.add_argument("--configs", action="store_true")
     mode.add_argument("--e2e", action="store_true")
     mode.add_argument("--stages", action="store_true")
+    mode.add_argument("--scaling", action="store_true")
+    mode.add_argument("--collectives", action="store_true")
+    mode.add_argument("--scaling-worker", action="store_true",
+                      help="one rank of --scaling --hosts (started by it)")
     ap.add_argument("rest", nargs="*",
                     help="[batch_tf]; with --stages [CONFIG] [batch_tf]")
     ap.add_argument("--only", default=None,
@@ -810,12 +1637,45 @@ def main(argv=None):
     ap.add_argument("--out-dir", default=None,
                     help="--e2e: where the ETI file and the outputs go "
                          "(default: the temporary directory)")
+    ap.add_argument("--worlds", default="1,2,4",
+                    help="--scaling: comma-separated world sizes, ranks "
+                         "spawned in one launcher")
+    ap.add_argument("--hosts", default=None,
+                    help="--scaling: comma-separated host counts, "
+                         "H x --chips-per-host separate processes joined "
+                         "by init_distributed (in place of --worlds)")
+    ap.add_argument("--chips-per-host", type=int, default=1)
+    ap.add_argument("--config", default="realistic17",
+                    help="--scaling: the ALL_CONFIGS row (default "
+                         "realistic17)")
+    ap.add_argument("--full", action="store_true",
+                    help="--collectives: also the JAX tool's realistic17 "
+                         "full")
+    ap.add_argument("--device", default="cuda",
+                    help="--scaling, --collectives: cuda, or cpu for a "
+                         "rehearsal over gloo")
+    ap.add_argument("--backend", default=None,
+                    help="--scaling, --collectives: nccl or gloo (default "
+                         "nccl on cuda, gloo on the CPU)")
+    ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--spec", default=None)
     ap.add_argument("--json", dest="json_out", default=None)
     args = ap.parse_args(argv)
     import torch
-    require_card(torch)
+    multi_rank = args.scaling or args.collectives or args.scaling_worker
+    if not multi_rank and args.device != "cuda":
+        ap.error("--device applies to --scaling and --collectives")
+    on_card = torch.device(args.device).type == "cuda"
+    backend = args.backend or ("nccl" if on_card else "gloo")
+    if on_card:
+        require_card(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.scaling_worker:
+        args.backend = backend
+        args.hosts = int(args.hosts)
+        return scaling_worker(args)
     rest = args.rest
     problems = []
     if args.stages:
@@ -834,6 +1694,20 @@ def main(argv=None):
         rec = run_configs(torch, names, batches)
     elif args.e2e:
         rec = bench_e2e(torch, args.out_dir)
+    elif args.scaling:
+        kw = dict(config=args.config, device=args.device, backend=backend)
+        if args.hosts:
+            rec = run_hosts(torch, [int(x) for x in args.hosts.split(",")],
+                            args.chips_per_host, **kw)
+        else:
+            rec = run_scaling(torch, [int(x) for x in args.worlds.split(",")],
+                              **kw)
+        problems = [f"world {r['world']}: output beyond the tolerance or "
+                    f"state unequal" for r in rec["rows"]
+                    if not r["elementwise_ok"]]
+    elif args.collectives:
+        rec = run_collectives(torch, args.full, backend=args.backend,
+                              device=args.device)
     else:
         rec = bench_default(torch, int(rest[0]) if rest else 24)
     if args.json_out:

@@ -226,12 +226,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    than resampler, "(other)" takes more than 5 % of the device time, or
    the stages' sum differs from the same trace's device busy time by
    more than 2 %.  Prints the phase's wall time.
+12. The multi-rank tools in this process (bench_gpu.py's functions, at
+   phase 11's steps a run), the 17-sub-channel ensemble at 24 TFs a rank:
+   --scaling at world 1 (this process, the captured step of
+   ShardedModulator with no process group), and on four cards also at
+   worlds 2 and 4 (spawned NCCL ranks, one a card); --scaling --hosts:
+   one separate process (--scaling-worker) joined through
+   parallel.init_distributed over NCCL at a free port, on four cards
+   2 x 2 processes; --collectives --full (bench_gpu's "base 2sub" and the
+   JAX tool's "realistic17 full" at 4.096 MS/s, s16) on 2 gloo ranks
+   sharing the card, on four cards 4 NCCL ranks, captured and eager.
+   Fails where a rank's output differs from the unsharded eager step on
+   its card beyond 3e-5*max|ref| or its state is not equal to the bit, a
+   row did not run its launcher, the captured step over NCCL and one card
+   a rank, a configuration's couplings are not its own (one all_reduce
+   each a step, counted twice at a graph's warm-up and capture), or a
+   rank's launches are not its eager steps' and its graphs' warm-ups and
+   captures (counted) and its graphs' warm-ups and replays (traced).
+   Prints each row and each coupling.
 
 TF32 is switched off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False): every tolerance below assumes fp32
 arithmetic.  The line before the last is one JSON object with the kernels'
 numbers (and phase 5's steps, the eager stages' times and the runtime's,
-the live phase's, the DPD loop's and the sharded runs' records), labelled
+the live phase's, the DPD loop's, the sharded runs' and phase 12's
+records), labelled
 with the card's name and power limit; the last is
 {"ok": true, "device": {...}}.
 """
@@ -869,8 +888,9 @@ def traced_launches(torch, fn, nccl=False):
     """fn() under torch.profiler, the card synchronised before and after:
     (its result, each counted kernel's launches on the card in the trace,
     keyed as _kernels()).  With nccl, also "nccl_all_reduce", NCCL's
-    all-reduce kernels in the trace, and "nccl_all_reduce_ms", their summed
-    device time.  Fails where the trace holds no device event."""
+    all-reduce kernels in the trace, "nccl_all_reduce_ms", their summed
+    device time, and "nccl_all_reduce_each_ms", each one's in the order
+    they started.  Fails where the trace holds no device event."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -881,17 +901,19 @@ def traced_launches(torch, fn, nccl=False):
     check(len(dev) > 0, "torch.profiler traced no device event: the "
           "launches on the card are not measured")
     out = dict.fromkeys(KERNEL_SYMBOLS.values(), 0)
-    if nccl:
-        out.update(nccl_all_reduce=0, nccl_all_reduce_ms=0.0)
+    each = []
     for e in dev:
         name = _kernel_of(e.name)
         k = KERNEL_SYMBOLS.get(name)
         if k is not None:
             out[k] += 1
         elif nccl and NCCL_ALL_REDUCE.match(name):
-            out["nccl_all_reduce"] += 1
-            out["nccl_all_reduce_ms"] += (
-                e.time_range.end - e.time_range.start) / 1e3
+            each.append((e.time_range.start,
+                         (e.time_range.end - e.time_range.start) / 1e3))
+    if nccl:
+        each = [ms for _, ms in sorted(each)]
+        out.update(nccl_all_reduce=len(each), nccl_all_reduce_ms=sum(each),
+                   nccl_all_reduce_each_ms=each)
     return res, out
 
 
@@ -3570,31 +3592,39 @@ def _check_shard_run(tag, ref, ranks, fmt, used, world, kind="eager"):
                           for x in (got, v))))
                 check(same, f"{tag} batch {k}: rank {r}'s {key} is not the "
                       f"unsharded step's")
-    names = {f.__name__: k for k, f in _kernels().items()}
     for r, rec in enumerate(ranks):
-        if kind == "eager":
-            want = {kn: SHARD_BATCHES if kn in used else 0
-                    for kn in rec["launches"]}
-            on_card = want
-        else:
-            want = dict.fromkeys(rec["launches"], 0)
-            on_card = dict(want)
-            for g in rec["graphs"].values():
-                for wrapper, n in g["launches"].items():
-                    want[names[wrapper]] += 2 * n
-                    on_card[names[wrapper]] += (1 + g["replays"]) * n
-            check(all(want[kn] > 0 for kn in used),
-                  f"{tag}: rank {r}'s graphs hold {want}, not {used}")
-        check(rec["launches"] == want, f"{tag}: rank {r} counted "
-              f"{rec['launches']}, not {want}")
-        if rec["on_card"] is not None:
-            traced = {kn: rec["on_card"][kn] for kn in want}
-            check(traced == on_card, f"{tag}: rank {r} launched {traced} "
-                  f"on the card (trace), not {on_card}")
+        eager = kind == "eager"
+        _check_rank_launches(f"{tag}: rank {r}", rec, used,
+                             SHARD_BATCHES if eager else 0,
+                             [] if eager else rec["graphs"].values())
     log(f"    {tag}: every rank's state equal to the bit; launches a rank "
         f"{ranks[0]['launches']}"
         + (f", on the card {ranks[0]['on_card']}"
            if ranks[0]["on_card"] is not None else "") + f" (world {world})")
+
+
+def _check_rank_launches(tag, rec, used, eager_steps, graphs):
+    """One rank's launches on its main path: the wrappers count its kernels
+    once an eager step (`used` once each of eager_steps) and each graph's
+    warm-up and capture (the graph's count, twice); the trace of the path
+    (rec["on_card"], where traced) holds the eager steps' launches and
+    each graph's at its warm-up and each replay.  Each kernel of `used`
+    must have launched."""
+    names = {f.__name__: k for k, f in _kernels().items()}
+    want = {kn: eager_steps if kn in used else 0 for kn in rec["launches"]}
+    on_card = dict(want)
+    for g in graphs:
+        for wrapper, n in g["launches"].items():
+            want[names[wrapper]] += 2 * n
+            on_card[names[wrapper]] += (1 + g["replays"]) * n
+    check(all(want[kn] > 0 for kn in used),
+          f"{tag}: its steps and graphs launch {want}, not {used}")
+    check(rec["launches"] == want, f"{tag} counted {rec['launches']}, not "
+          f"{want}")
+    if rec["on_card"] is not None:
+        traced = {kn: rec["on_card"][kn] for kn in want}
+        check(traced == on_card, f"{tag} launched {traced} on the card "
+              f"(trace), not {on_card}")
 
 
 def _check_captured_collectives(tag, ranks, world):
@@ -3847,6 +3877,144 @@ def phase_bench(torch):
             "stages": stages, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the multi-rank tools (bench_gpu.py --scaling, --collectives)
+# ---------------------------------------------------------------------------
+
+MULTI_CONFIG = "realistic17"     # the scaling runs' row, BATCH_TF TFs a rank
+# each --collectives configuration: its couplings, the kernels it launches
+MULTI_COLLECTIVES = {
+    "base 2sub": ({"time_interleave"}, ("ofdm_ifft",)),
+    "realistic17 full": ({"time_interleave", "resampler", "num_clipped"},
+                         ("ofdm_cfr", "resample_poly"))}
+
+
+def _replay_launches(graph, steps) -> dict:
+    """The launches of `steps` replays of `graph` (a trace holds them)."""
+    names = {f.__name__: k for k, f in _kernels().items()}
+    want = dict.fromkeys(_kernels(), 0)
+    for wrapper, n in graph["launches"].items():
+        want[names[wrapper]] += steps * n
+    return want
+
+
+def _check_scaling(tag, rec, world_list, hosts=False):
+    """--scaling's rows: each world ran (in this process at world 1,
+    spawned above it, or with `hosts` by init_distributed; the captured step
+    over NCCL, one card a rank where there are enough), its output within
+    the tolerance and its state equal on every rank; each rank's launches
+    on its main path (_check_rank_launches) and in the trace of its timed
+    replays."""
+    check([r["world"] for r in rec["rows"]] == list(world_list),
+          f"{tag}: worlds {[r['world'] for r in rec['rows']]}")
+    for row in rec["rows"]:
+        t = f"{tag} world {row['world']}"
+        launcher = "init_distributed" if hosts else (
+            "in process" if row["world"] == 1 else "spawn")
+        check(row["launcher"] == launcher and row["captured"]
+              and row["backend"] in (None, "nccl"),
+              f"{t}: {row['launcher']}, {row['backend']}, captured "
+              f"{row['captured']}")
+        check(row["own_cards"], f"{t}: ranks on {row['devices']}")
+        check(row["elementwise_ok"], f"{t}: max_abs_diff "
+              f"{row['max_abs_diff']} ({row['diff_over_tol']:.3g} of the "
+              f"tolerance), state equal {row['state_equal']}")
+        for r in row["ranks"]:
+            rt = f"{t}: rank {r['rank']}"
+            _check_rank_launches(rt, r, ("ofdm_ifft",), r["eager_calls"],
+                                 r["graphs"])
+            check(len(r["graphs"]) == 1, f"{rt}: {len(r['graphs'])} graphs")
+            want = _replay_launches(r["graphs"][0], r["traced_steps"])
+            got = {k: r["traced"][k] for k in want}
+            check(got == want, f"{rt}: its traced replays launched {got}, "
+                  f"not {want}")
+
+
+def _check_collectives(tag, rec):
+    """--collectives' records: each configuration's couplings, one
+    all_reduce each a step, the same every step, counted twice at a
+    graph's warm-up and capture; each rank's launches (its eager steps'
+    and its graphs' warm-ups and captures) and, captured, its traced
+    replays'."""
+    check([r["config"] for r in rec["configs"]] == list(MULTI_COLLECTIVES),
+          f"{tag}: configurations {[r['config'] for r in rec['configs']]}")
+    for r in rec["configs"]:
+        t = f"{tag} {r['config']}"
+        names, used = MULTI_COLLECTIVES[r["config"]]
+        check(set(r["couplings"]) == names,
+              f"{t}: couplings {sorted(r['couplings'])}, not {sorted(names)}")
+        check(all(c["collectives_per_step"] == 1 and c["same_every_step"]
+                  for c in r["couplings"].values()),
+              f"{t}: not one all_reduce a coupling every step")
+        if "resample_poly" in used:
+            check(r["resampler_route"] == "kernel",
+                  f"{t}: resampler route {r['resampler_route']}")
+        for k in r["ranks"]:
+            rt = f"{t}: rank {k['rank']}"
+            _check_rank_launches(rt, dict(k, on_card=None), used,
+                                 k["eager_calls"], k["graphs"])
+            if "traced" in k:
+                check({c: v["collectives"] for c, v in
+                       k["captured_exchanges"].items()}
+                      == dict.fromkeys(names, 2),
+                      f"{rt}: the graph's warm-up and capture counted "
+                      f"{k['captured_exchanges']}")
+                want = _replay_launches(k["graphs"][0], k["traced_steps"])
+                got = {c: k["traced"][c] for c in want}
+                check(got == want, f"{rt}: its traced replays launched "
+                      f"{got}, not {want}")
+
+
+def _multi_launches(multi, kernel) -> dict:
+    """Phase 12's launches of one kernel, summed over each run's ranks:
+    [counted, on the card] for a scaling row's main path, counted for a
+    --collectives configuration (its eager steps and graphs)."""
+    out = {}
+    for mode in ("scaling", "hosts"):
+        for row in multi[mode]["rows"]:
+            out[f"[12] {mode} {row['config']}@ncclx{row['world']} "
+                f"captured"] = [sum(r[key][kernel] for r in row["ranks"])
+                                for key in ("launches", "on_card")]
+    coll = multi["collectives"]
+    for r in coll["configs"]:
+        out[f"[12] collectives {r['config']}"
+            + (" (4.096 MS/s)" if kernel == "resample_poly" else "")
+            + f"@{coll['backend']}x{coll['world']}"] = sum(
+                k["launches"][kernel] for k in r["ranks"])
+    return out
+
+
+def phase_multi_rank(torch):
+    """Phase 12: bench_gpu.py --scaling (--worlds and --hosts) and
+    --collectives --full in this process; see the module docstring.
+    Returns the phase's record."""
+    t0 = time.perf_counter()
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    import bench_gpu
+    four = torch.cuda.device_count() >= 4
+    worlds = (1, 2, 4) if four else (1,)
+    hosts, chips = ((2,), 2) if four else ((1,), 1)
+    kw = dict(config=MULTI_CONFIG, batch_per_rank=BATCH_TF,
+              steps=BENCH_STEPS, runs=BENCH_RUNS)
+    log(f"[12] --scaling --worlds {worlds}:")
+    scaling = bench_gpu.run_scaling(torch, worlds, **kw)
+    _check_scaling("[12] --scaling", scaling, worlds)
+    log(f"[12] --scaling --hosts {hosts} --chips-per-host {chips} "
+        f"(init_distributed, separate processes):")
+    hosts_rec = bench_gpu.run_hosts(torch, hosts, chips, **kw)
+    _check_scaling("[12] --hosts", hosts_rec,
+                   tuple(h * chips for h in hosts), hosts=True)
+    log("[12] --collectives --full:")
+    coll = bench_gpu.run_collectives(torch, full=True, steps=BENCH_STEPS,
+                                     runs=BENCH_RUNS)
+    _check_collectives(f"[12] --collectives ({coll['backend']} x"
+                       f"{coll['world']})", coll)
+    wall = time.perf_counter() - t0
+    log(f"[12] multi-rank phase passed in {wall:.1f} s")
+    return {"scaling": scaling, "hosts": hosts_rec, "collectives": coll,
+            "wall_s": wall}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3877,6 +4045,7 @@ def main():
         dpd = phase_dpd(torch, card)
         sharded = phase_sharded(torch, card)
         bench = phase_bench(torch)
+        multi = phase_multi_rank(torch)
     finally:
         for d in _TMP:
             shutil.rmtree(d, ignore_errors=True)
@@ -3908,11 +4077,17 @@ def main():
             for run in sharded["runs"]
             if k.get("rate", 8_192_000) == 8_192_000
             or base != "resample_poly"}
+        # phase 12's, summed over the ranks of each run (K3 at 4.096 MS/s,
+        # beside its 8.192 MS/s row): counted, and for a scaling run also
+        # on the card (main path's trace)
+        if k.get("rate", 8_192_000) == 8_192_000 or base != "resample_poly":
+            k["sharded_launches"].update(_multi_launches(multi, base))
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"[11] {json.dumps(bench)}")
     print(json.dumps({"card": card, "kernels": kernels, "steps": steps,
                       "eager_stages": stages, "runtime": runtime,
-                      "live": live, "dpd": dpd, "sharded": sharded}),
+                      "live": live, "dpd": dpd, "sharded": sharded,
+                      "multi_rank": multi}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,8 @@ counterpart here.
 Every exchange is one collective, exchange_tails.  A step makes one for
 the TI rows of every sub-channel, one for the resampler and one for
 num_clipped; EXCHANGES counts them, with their bytes and, on request,
-their time.
+their time, in total and per coupling ("time_interleave", "resampler",
+"num_clipped"; "gather" outside the step).
 
 On the card over NCCL (or alone, world 1 with no group) each rank's step
 is a CUDA graph per local batch size (models/compiled.py's GraphStep of
@@ -163,14 +164,44 @@ def captures(mesh: TfMesh) -> bool:
     return dist.get_backend(mesh.group) == "nccl"
 
 
+def _span_ms(spans) -> float:
+    """The summed time of (start, end) spans: perf_counter readings, or
+    CUDA events (each end waited for)."""
+    total = 0.0
+    for t0, t1 in spans or ():
+        if isinstance(t0, float):
+            total += (t1 - t0) * 1e3
+        else:
+            t1.synchronize()
+            total += t0.elapsed_time(t1)
+    return total
+
+
+@dataclasses.dataclass
+class Coupling:
+    """What exchange_tails did for one coupling since EXCHANGES.reset():
+    its collectives, their all_reduce buffer bytes, the shape and dtype of
+    the tail this rank gave the last of them (every rank gives the same)
+    and, with timing, each one's span."""
+    collectives: int = 0
+    buffer_bytes: int = 0
+    tail_shape: tuple = ()
+    dtype: str = ""
+    spans: list | None = None
+
+    def ms(self) -> float:
+        return _span_ms(self.spans)
+
+
 @dataclasses.dataclass
 class ExchangeCounts:
     """What exchange_tails has done in this process since reset(): its
     collectives and the bytes of their all_reduce buffers and, after
     reset(timing=True), each one's span from its buffer's allocation to
     the reduced buffer (a pair of CUDA events recorded on the current
-    stream on the card, perf_counter readings on the CPU).  A world of one
-    makes no collective and counts none.
+    stream on the card, perf_counter readings on the CPU); in total, and
+    per coupling in `couplings` (name -> Coupling).  A world of one makes
+    no collective and counts none.
 
     It counts where a collective is issued: in an eager step, and in a
     graph's warm-up and capture.  A replay runs no Python and counts
@@ -180,21 +211,28 @@ class ExchangeCounts:
     collectives: int = 0
     buffer_bytes: int = 0
     spans: list | None = None
+    couplings: dict = dataclasses.field(default_factory=dict)
 
     def reset(self, timing: bool = False):
         self.collectives, self.buffer_bytes = 0, 0
         self.spans = [] if timing else None
+        self.couplings = {}
 
     def ms(self) -> float:
         """The summed time of the timed exchanges (waits for the card)."""
-        total = 0.0
-        for t0, t1 in self.spans or ():
-            if isinstance(t0, float):
-                total += (t1 - t0) * 1e3
-            else:
-                t1.synchronize()
-                total += t0.elapsed_time(t1)
-        return total
+        return _span_ms(self.spans)
+
+    def _count(self, coupling: str, tail: torch.Tensor, nbytes: int, span):
+        c = self.couplings.setdefault(coupling, Coupling(
+            spans=None if self.spans is None else []))
+        self.collectives += 1
+        self.buffer_bytes += nbytes
+        c.collectives += 1
+        c.buffer_bytes += nbytes
+        c.tail_shape, c.dtype = tuple(tail.shape), str(tail.dtype)
+        if span is not None:
+            self.spans.append(span)
+            c.spans.append(span)
 
 
 EXCHANGES = ExchangeCounts()
@@ -213,9 +251,11 @@ def _capturing(t: torch.Tensor) -> bool:
     return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
-def exchange_tails(tail: torch.Tensor, mesh: TfMesh) -> torch.Tensor:
+def exchange_tails(tail: torch.Tensor, mesh: TfMesh,
+                   coupling: str = "other") -> torch.Tensor:
     """Every rank's `tail` (same shape and dtype on each rank) on every
-    rank: [world, *tail.shape], slot r from rank r.
+    rank: [world, *tail.shape], slot r from rank r.  EXCHANGES counts it
+    under `coupling`.
 
     One all_reduce (sum) of a zeroed [world, nbytes] uint8 buffer in which
     each rank fills its own slot with the bytes of its tail: every byte has
@@ -242,10 +282,8 @@ def exchange_tails(tail: torch.Tensor, mesh: TfMesh) -> torch.Tensor:
                       device=tail.device)
     buf[mesh.rank] = raw
     dist.all_reduce(buf, group=mesh.group)
-    EXCHANGES.collectives += 1
-    EXCHANGES.buffer_bytes += buf.numel()
-    if timing:
-        EXCHANGES.spans.append((t0, _mark(tail.device)))
+    EXCHANGES._count(coupling, tail, buf.numel(),
+                     (t0, _mark(tail.device)) if timing else None)
     return buf.view(tail.dtype).reshape(mesh.world_size, *tail.shape)
 
 
@@ -273,7 +311,7 @@ def make_sharded_time_interleave(mesh: TfMesh):
             return [], ()
         rows = min(bits[0].shape[0], 15)
         tails = exchange_tails(torch.cat([b[-rows:] for b in bits], dim=1),
-                               mesh)                    # [world, rows, sum n]
+                               mesh, "time_interleave")  # [world, rows, sum n]
         # the carried history and the tails of ranks 0 .. i-1 end on the
         # row before rank i's first
         before = 15 + mesh.rank * rows
@@ -324,7 +362,8 @@ def shard_resampler_backend(modulator: Modulator, mesh: TfMesh):
                 raise ValueError(f"{flat[0].shape[0]} samples a rank: the "
                                  f"halo needs {2 * hi}")
             tails = exchange_tails(
-                torch.stack([x[-2 * hi:] for x in flat], dim=-1), mesh)
+                torch.stack([x[-2 * hi:] for x in flat], dim=-1), mesh,
+                "resampler")
             local = state if prev < 0 else {
                 "res_in_tail": tails[prev, hi:],
                 "res_out_tail": out_tail(tails[prev])}
@@ -341,7 +380,8 @@ def shard_resampler_backend(modulator: Modulator, mesh: TfMesh):
         if flat[0].shape[0] < h2:
             raise ValueError(f"{flat[0].shape[0]} samples a rank: the carry "
                              f"needs {h2}")
-        tails = exchange_tails(torch.stack([x[-h2:] for x in flat]), mesh)
+        tails = exchange_tails(torch.stack([x[-h2:] for x in flat]), mesh,
+                               "resampler")
         local = state if prev < 0 else {"res_carry": tuple(tails[prev])}
         y = resample_local(iq, local, new_state)
         new_state["res_carry"] = tuple(c.clone() for c in tails[-1])
@@ -435,7 +475,8 @@ class ShardedModulator:
             new["mer_index"] = ((state["mer_index"] + B) % S).to(torch.int32)
         if "num_clipped" in stats:
             stats["num_clipped"] = exchange_tails(
-                stats["num_clipped"], mesh).sum(dtype=torch.int32)
+                stats["num_clipped"], mesh, "num_clipped").sum(
+                    dtype=torch.int32)
         return out, new, stats
 
     def gather(self, x, axis: int = 0):
@@ -445,4 +486,5 @@ class ShardedModulator:
         the step."""
         if isinstance(x, tuple):
             return tuple(self.gather(p, axis) for p in x)
-        return torch.cat(tuple(exchange_tails(x, self.mesh)), dim=axis)
+        return torch.cat(tuple(exchange_tails(x, self.mesh, "gather")),
+                         dim=axis)

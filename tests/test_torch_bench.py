@@ -361,7 +361,8 @@ def test_every_measuring_path_raises_without_a_card(tmp_path):
 
 def test_bench_gpu_imports_no_jax():
     """In a fresh interpreter: bench_gpu's parts that need no card, with
-    neither jax nor dabmod_tpu imported."""
+    neither jax nor dabmod_tpu imported; and a --scaling-worker process
+    imports neither."""
     code = (
         "import sys, torch, bench_gpu as B\n"
         "from types import SimpleNamespace\n"
@@ -389,6 +390,22 @@ def test_bench_gpu_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+    # the --scaling-worker entry: one rank of --hosts 1 on the CPU, every
+    # module it imports listed by -X importtime
+    spec = {"config": "base", "batch_per_rank": 1, "steps": 1, "runs": 2,
+            "poly": "", "traced": 1, "unsharded": True, "timeout_s": 60}
+    r = subprocess.run(
+        [sys.executable, "-X", "importtime", "bench_gpu.py",
+         "--scaling-worker", "--rank", "0", "--hosts", "1",
+         "--chips-per-host", "1", "--port", str(bench_gpu.free_port()),
+         "--device", "cpu", "--spec", json.dumps(spec)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr[-4000:]
+    assert json.loads(r.stdout.splitlines()[-1])["elementwise_ok"]
+    imported = re.findall(r"^import time:.*\|\s*(\S+)\s*$", r.stderr, re.M)
+    assert "dabmod_tpu_torch.parallel.sharding" in imported
+    assert not [m for m in imported
+                if m.split(".")[0] in ("jax", "dabmod_tpu")]
     for path in ("bench_gpu.py", "chip_smoke.py"):
         src = _source(path)
         assert not re.search(r"^\s*(import jax|from jax|import dabmod_tpu\b"

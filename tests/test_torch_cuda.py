@@ -1254,6 +1254,38 @@ def test_bench_gpu_stages_on_card(card):
         assert rec["stages"][stage]["kernels"].get(kernel, 0) == 1
 
 
+@pytest.mark.cuda
+def test_bench_gpu_scaling_on_card(card):
+    """bench_gpu.py --scaling, briefly: world 1 in the process and one
+    --scaling-worker process through init_distributed over NCCL, each the
+    captured sharded step equal to the unsharded step on the card."""
+    import bench_gpu
+    kw = dict(config="base", batch_per_rank=2, steps=3, runs=2, traced=2)
+    rows = (bench_gpu.run_scaling(torch, (1,), **kw)["rows"]
+            + bench_gpu.run_hosts(torch, (1,), 1, **kw)["rows"])
+    assert [r["launcher"] for r in rows] == ["in process",
+                                             "init_distributed"]
+    for r in rows:
+        assert r["captured"] and r["own_cards"] and r["elementwise_ok"]
+        assert r["efficiency"] == 1.0
+        assert r["ranks"][0]["launches"]["ofdm_ifft"] == 2
+
+
+@pytest.mark.cuda
+def test_bench_gpu_collectives_on_card(card):
+    """bench_gpu.py --collectives on 2 gloo ranks sharing the card: the
+    TI coupling's one all_reduce a step, the severed step eager and
+    captured, and the rows labelled as no scaling."""
+    import bench_gpu
+    rec = bench_gpu.run_collectives(torch, world=2, backend="gloo",
+                                    steps=2, runs=2, traced=2)
+    (r,) = rec["configs"]
+    assert set(r["couplings"]) == {"time_interleave"}
+    assert r["couplings"]["time_interleave"]["tail_shape"] == [15, 9216]
+    assert r["severed_captured_ms"] > 0 and r["eager_step_ms"] > 0
+    assert r["shared_device"] and r["note"] == bench_gpu.SHARED_NOTE
+
+
 # last in the file: a failed capture leaves its side stream unusable
 @pytest.mark.cuda
 def test_failed_capture_raises_on_card(card, monkeypatch):
