@@ -1,0 +1,8 @@
+"""K3, the polyphase resampler: the least time the card could take for the work of one step
+of the cell over the median device time of its launches in the trace
+(roofline.share), %."""
+import roofline
+
+
+def read(t, cell):
+    return roofline.share("resample_poly", "resample_poly", t, cell)

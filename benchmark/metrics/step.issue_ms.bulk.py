@@ -1,0 +1,8 @@
+"""Modulator.modulate's host time a batch (ModRuntime.timings['modulate_s']: a graph replay with its input copies and output clones), ms.
+Over the traced stretch: the counter's increase over the steps issued."""
+
+
+def read(t, cell):
+    if t.batches == 0:
+        return None
+    return 1e3 * t.timings["modulate_s"] / t.batches
