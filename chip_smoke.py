@@ -2169,7 +2169,7 @@ def _record_device(dev, keep_tf, out=None):
 
     def recording(samples, ts):
         if out is not None:
-            held = dict(_buffer_of(f) for f, _ in list(out.queue.queue))
+            held = dict(_buffer_of(f) for f, *_ in list(out.queue.queue))
             held.update([_buffer_of(samples)])
             rec["held_bytes"] = max(rec["held_bytes"], sum(held.values()))
         key = (int(ts.seconds), int(ts.pps)) if ts.valid else None

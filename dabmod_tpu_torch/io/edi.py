@@ -567,13 +567,16 @@ class EdiUdpTransport:
         else:
             self.sock.bind((addr or "0.0.0.0", int(port)))
         self.sock.settimeout(timeout)
+        self.decode_s = 0.0        # the decode's running sum, seconds
 
     def rx_packet(self, dispatcher: TagDispatcher) -> bool:
         try:
             data, _ = self.sock.recvfrom(65536)
         except socket.timeout:
             return False
+        t0 = time.perf_counter()
         dispatcher.push_packet(data)
+        self.decode_s += time.perf_counter() - t0
         return True
 
 
@@ -590,6 +593,7 @@ class EdiTcpTransport:
         self._reconnect_delay = reconnect_delay
         self.num_reconnects = 0
         self.sock: socket.socket | None = None
+        self.decode_s = 0.0        # the decode's running sum, seconds
         # a failed first connect is tolerated (the mux may start after
         # the modulator -- same liveness contract as EtiTcpReader);
         # rx_packet keeps retrying with backoff
@@ -631,7 +635,9 @@ class EdiTcpTransport:
                 self.sock = None
             dispatcher.push_bytes(b"")
             return False
+        t0 = time.perf_counter()
         dispatcher.push_bytes(data)
+        self.decode_s += time.perf_counter() - t0
         return True
 
 
@@ -653,6 +659,14 @@ class EdiInput:
             raise ValueError(f"unsupported EDI URI {uri}")
         self.timestamps = []
         self._stopping = False
+        self._rebuild_s = 0.0
+
+    @property
+    def decode_s(self) -> float:
+        """The decode's running sum, seconds: the transport's AF/PF and TAG
+        decode with their CRCs, and the frames' rebuild into ETI here; the
+        socket's wait left out."""
+        return self.transport.decode_s + self._rebuild_s
 
     def request_stop(self):
         """Make an in-progress or future read_batch return after the
@@ -668,7 +682,9 @@ class EdiInput:
         while len(self.decoder.frames) < max(n, 1) and not self._stopping:
             if not self.transport.rx_packet(self.decoder.dispatcher):
                 break
+        t0 = time.perf_counter()
         raw, times = self.decoder.pop_eti_frames()
+        self._rebuild_s += time.perf_counter() - t0
         self.timestamps.extend(times)
         return raw
 

@@ -227,6 +227,9 @@ class EtiTcpReader:
         self._stopping = False
         self._outage = False
         self.reconnects = 0
+        # the framing's running sum, seconds: the received bytes gathered
+        # and cut into frames; the socket's wait left out
+        self.decode_s = 0.0
         self._connect()
 
     def _connect(self) -> None:
@@ -302,7 +305,9 @@ class EtiTcpReader:
                 if not chunk:
                     self._reconnect("peer closed")
                     break
+                t0 = time.perf_counter()
                 self._buf += chunk
+                self.decode_s += time.perf_counter() - t0
                 self._last_rx = time.monotonic()
                 if self._outage:
                     log.info("TCP input reconnected, stream resumed")
@@ -312,9 +317,11 @@ class EtiTcpReader:
         T = min(len(self._buf) // ETI_NI_FRAME, n)
         if T == 0:
             return np.empty((0, ETI_NI_FRAME), np.uint8)
+        t0 = time.perf_counter()
         out = np.frombuffer(self._buf[:T * ETI_NI_FRAME],
                             np.uint8).reshape(T, ETI_NI_FRAME).copy()
         self._buf = self._buf[T * ETI_NI_FRAME:]
+        self.decode_s += time.perf_counter() - t0
         return out
 
     def close(self):

@@ -25,6 +25,7 @@ import time
 import numpy as np
 
 from ..timestamps import FrameTimestamp
+from ..utils.spans import span
 
 log = logging.getLogger("dabmod_tpu_torch.sdr")
 
@@ -251,6 +252,10 @@ class SdrOutput:
         self.muted = 0
         self.queue_overflows = 0
         self.frames = 0
+        # the device thread's sum of each TF's wait in the queue (popped
+        # less enqueued), and the TFs it popped
+        self.queue_wait_s = 0.0
+        self.popped = 0
         self.timestamp_discontinuities = 0
         self.num_clipped_samples = 0
         self._last_tx_ticks = None       # (seconds, pps) of last frame sent
@@ -299,26 +304,30 @@ class SdrOutput:
         # evict-one-then-put must be atomic against other producers, else a
         # second writer could win the freed slot and the retry would raise
         # queue.Full into the modulate loop.
+        item = (frame, ts, time.perf_counter())
         with self._enqueue_lock:
             try:
-                self.queue.put_nowait((frame, ts))
+                self.queue.put_nowait(item)
             except queue.Full:
                 self.queue_overflows += 1
                 try:
                     self.queue.get_nowait()
                 except queue.Empty:
                     pass
-                self.queue.put_nowait((frame, ts))
+                self.queue.put_nowait(item)
 
     # -- device thread ----------------------------------------------------
     def _device_thread(self):
         while self._running:
             try:
-                frame, ts = self.queue.get(timeout=0.2)
+                frame, ts, enqueued = self.queue.get(timeout=0.2)
             except queue.Empty:
                 continue
+            self.queue_wait_s += time.perf_counter() - enqueued
+            self.popped += 1
             try:
-                self._handle_frame(frame, ts)
+                with span(None, "sdr.transmit"):
+                    self._handle_frame(frame, ts)
             except Exception as e:      # noqa: BLE001
                 # terminal: timestamp abort, refclk-crash behaviour, GPS
                 # fix lost past holdover (ref: src/output/SDR.cpp:342-351)

@@ -51,6 +51,7 @@ from .models import (Modulator, get_modulator, load_dpd_file, load_fir_taps,
                      resolve_device)
 from .rc import ParameterError, RemoteControllable, rcs
 from .timestamps import TimestampDecoder
+from .utils.spans import span
 
 log = logging.getLogger("dabmod_tpu_torch")
 
@@ -65,6 +66,23 @@ class RunResult(enum.Enum):
 # RC controller fault poll cadence in ETI frames (ref: src/DabMod.cpp:721-723
 # polls every 250 frames unconditionally)
 RC_FAULT_POLL_FRAMES = 250
+
+# ModRuntime.timings: seconds, summed over the run where the work runs.
+# Main thread: `read` (the reader's call: a file read, or a socket's wait
+# and its decode), of which `read_decode` is the reader's own decode (EDI
+# AF/TAG decode and CRC, ETI framing; the socket's wait left out), `parse`
+# (ETI parse, FCT continuity, timestamps, FIC decode), `stage_in` (the ETI
+# bytes into pinned memory and their copy launched), `modulate` (the
+# step's host issue), `copy_out` (the output's copy launched), `handoff`
+# (the wait for a free place among the batches in flight).  Fetch thread:
+# `fetch_wait` (for the card), `fetch` (the host work after it: the f32
+# interleave, the dexter chain).  Writer thread: `write` (the sink's write;
+# an SDR sink's only queues each TF for its device thread), and
+# `sink_queue` (the SDR sink's TFs' wait in that queue, summed by its
+# device thread).
+TIMINGS = ("read_s", "read_decode_s", "parse_s", "stage_in_s", "modulate_s",
+           "copy_out_s", "handoff_s", "fetch_wait_s", "fetch_s", "write_s",
+           "sink_queue_s")
 
 
 class ModRuntime:
@@ -116,17 +134,11 @@ class ModRuntime:
         self._next_fault_poll = RC_FAULT_POLL_FRAMES
         self._frames_since_clip_poll = RC_FAULT_POLL_FRAMES
         self._frames_since_stats_poll = RC_FAULT_POLL_FRAMES
-        # seconds spent in each part of the pipeline, summed over the run:
-        # on the main thread, the reader (a file read, or a socket's wait
-        # and the EDI decode), staging the ETI bytes in and launching their
-        # copy, modulate's host time, taking pinned buffers for the output
-        # and launching the copy out; on the fetch thread, the wait for the
-        # card and the host work after it (the planes' interleave, the
-        # dexter chain); on the writer thread, the sink writes (an SDR
-        # sink's write only queues the frames for its device thread)
-        self.timings = dict.fromkeys(
-            ("read_s", "stage_in_s", "modulate_s", "pin_alloc_s",
-             "copy_out_s", "fetch_wait_s", "fetch_s", "write_s"), 0.0)
+        # each part of the pipeline summed over the run, by the thread that
+        # runs it (TIMINGS; utils/spans.py); every key is here from the
+        # start, so a snapshot taken at any time has them all
+        self.timings = dict.fromkeys(TIMINGS, 0.0)
+        self._sink_seen = (None, 0.0)       # (output, its queue wait read)
         # dispatch -> [fetch thread: wait for the card, host arrays] ->
         # [writer thread: output.write]; depth 4 keeps enough batches in
         # flight to overlap the fetch of one with the write of another
@@ -343,7 +355,8 @@ class ModRuntime:
         sdr_rc.add_parameter("muting", "Mute the TX carrier",
                              lambda: int(out.muting),
                              lambda v: setattr(out, "muting", bool(int(v))))
-        for stat in ("underruns", "dropped", "queue_overflows", "frames"):
+        for stat in ("underruns", "dropped", "queue_overflows", "frames",
+                     "queue_wait_s"):
             sdr_rc.add_parameter(stat, f"(Read-only) {stat} counter",
                                  lambda st=stat: getattr(out, st))
         dtime = getattr(dev, "device_time", None)
@@ -384,9 +397,7 @@ class ModRuntime:
         CPU the tensor itself."""
         if not self._cuda:
             return x
-        t0 = time.perf_counter()
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        self.timings["pin_alloc_s"] += time.perf_counter() - t0
         host.copy_(x, non_blocking=True)
         return host
 
@@ -408,39 +419,12 @@ class ModRuntime:
             if self._writer_fault is not None:
                 continue                             # drain after a fault
             try:
-                t0 = time.perf_counter()
                 if ready is not None:
-                    ready.synchronize()
-                t1 = time.perf_counter()
-                self.timings["fetch_wait_s"] += t1 - t0
-                stats = {k: v.numpy() for k, v in stats.items()}
-                if stats:
-                    # CFR/MER statistics, folded into the RC accumulators
-                    # at the RC poll cadence (as dabmod_tpu samples them)
-                    self.last_stats = stats
-                    self._frames_since_stats_poll += T
-                    if (self._frames_since_stats_poll
-                            >= RC_FAULT_POLL_FRAMES):
-                        self._frames_since_stats_poll = 0
-                        self._note_stats(stats, n_cells)
-                if isinstance(iq, tuple):
-                    # planes contract: interleave here, at the same host
-                    # boundary where the reference's FormatConverter
-                    # assembles wire bytes
-                    re = iq[0].numpy().reshape(len(meta), -1)
-                    im = iq[1].numpy().reshape(len(meta), -1)
-                    arr = np.empty((*re.shape, 2), np.float32)
-                    arr[..., 0] = re
-                    arr[..., 1] = im
-                else:
-                    arr = iq.numpy()
-                    if hb is not None:
-                        # fft_engine=dexter: the FFT-accelerator chain
-                        # (transform + wide GI + s16) on the fetched Q1.14
-                        # symbols (io/dexter_fft.py)
-                        arr = hb(arr)
-                        self.output.num_clipped_samples = hb.num_clipped
-                self.timings["fetch_s"] += time.perf_counter() - t1
+                    with span(self.timings, "fetch_wait"):
+                        ready.synchronize()
+                with span(self.timings, "fetch"):
+                    arr, stats = self._fetch(iq, stats, hb, meta, T,
+                                             n_cells)
                 # `iq` rides along: the pinned host memory `arr` may view
                 # stays referenced until the writer has written it
                 self._write_queue.put((arr, meta, T, iq))
@@ -456,6 +440,35 @@ class ModRuntime:
                 log.error("output fetch failed: %s", e)
                 self._writer_fault = e
 
+    def _fetch(self, iq, stats, hb, meta, T, n_cells):
+        """A batch's host arrays once the card is done with it: (the output
+        array, the stats as NumPy arrays)."""
+        stats = {k: v.numpy() for k, v in stats.items()}
+        if stats:
+            # CFR/MER statistics, folded into the RC accumulators at the RC
+            # poll cadence (as dabmod_tpu samples them)
+            self.last_stats = stats
+            self._frames_since_stats_poll += T
+            if self._frames_since_stats_poll >= RC_FAULT_POLL_FRAMES:
+                self._frames_since_stats_poll = 0
+                self._note_stats(stats, n_cells)
+        if isinstance(iq, tuple):
+            # planes contract: interleave here, at the same host boundary
+            # where the reference's FormatConverter assembles wire bytes
+            re = iq[0].numpy().reshape(len(meta), -1)
+            im = iq[1].numpy().reshape(len(meta), -1)
+            arr = np.empty((*re.shape, 2), np.float32)
+            arr[..., 0] = re
+            arr[..., 1] = im
+            return arr, stats
+        arr = iq.numpy()
+        if hb is not None:
+            # fft_engine=dexter: the FFT-accelerator chain (transform + wide
+            # GI + s16) on the fetched Q1.14 symbols (io/dexter_fft.py)
+            arr = hb(arr)
+            self.output.num_clipped_samples = hb.num_clipped
+        return arr, stats
+
     def _writer_loop(self):
         """Stage 2: push fetched host arrays into the sink."""
         while True:
@@ -469,13 +482,27 @@ class ModRuntime:
             if self._writer_fault is not None:
                 continue
             try:
-                t0 = time.perf_counter()
-                self.output.write(arr, meta)
-                self.timings["write_s"] += time.perf_counter() - t0
+                out = self.output
+                with span(self.timings, "write"):
+                    out.write(arr, meta)
+                self._fold_sink_queue(out)
                 self._tracepoint("output,write %d" % T)
             except BaseException as e:               # noqa: BLE001
                 log.error("output writer failed: %s", e)
                 self._writer_fault = e
+
+    def _fold_sink_queue(self, out):
+        """Add what an SDR sink's TFs waited in its queue since the last
+        look to timings["sink_queue_s"]; the output may have been replaced
+        since then (callers may swap it after construction)."""
+        wait = getattr(out, "queue_wait_s", None)
+        if wait is None:
+            return
+        seen_out, seen = self._sink_seen
+        if seen_out is not out:
+            seen = 0.0
+        self.timings["sink_queue_s"] += wait - seen
+        self._sink_seen = (out, wait)
 
     def _flush_output(self):
         """Barrier: wait until every dispatched batch has been written."""
@@ -603,9 +630,13 @@ class ModRuntime:
     def _read(self, n: int) -> np.ndarray:
         """Up to n frames from the reader onto _pending, with their EDI
         timestamps (if the reader has any) onto _pending_times."""
-        t0 = time.perf_counter()
-        got = self.reader.read_batch(n)
-        self.timings["read_s"] += time.perf_counter() - t0
+        with span(self.timings, "read"):
+            got = self.reader.read_batch(n)
+        # a stream reader's running sum of its decode (the socket's wait
+        # left out); the reader is this runtime's for its whole life
+        decode_s = getattr(self.reader, "decode_s", None)
+        if decode_s is not None:
+            self.timings["read_decode_s"] = decode_s
         if got.size:
             self._pending = np.concatenate([self._pending, got])
             self._take_reader_times(len(got))
@@ -683,7 +714,8 @@ class ModRuntime:
                     return RunResult.NORMAL_END
                 continue
             try:
-                head = parse_eti_frames(self._pending[:1])
+                with span(self.timings, "parse"):
+                    head = parse_eti_frames(self._pending[:1])
             except EtiError as e:
                 log.error("ETI parse error: %s", e)
                 return RunResult.FAILURE
@@ -703,103 +735,108 @@ class ModRuntime:
                 if stream:
                     continue        # timeout: keep the transmitter alive
                 return RunResult.NORMAL_END
-            raw, self._pending = self._pending[:T], self._pending[T:]
-            times_batch = None
-            if self._pending_times is not None:
-                times_batch = self._pending_times[:T]
-                self._pending_times = self._pending_times[T:]
+            # the batch taken off _pending and parsed, its continuity
+            # checked, its timestamps and FIC decoded
+            with span(self.timings, "parse"):
+                raw, self._pending = self._pending[:T], self._pending[T:]
+                times_batch = None
+                if self._pending_times is not None:
+                    times_batch = self._pending_times[:T]
+                    self._pending_times = self._pending_times[T:]
 
-            def _requeue(from_idx):
-                self._pending = np.concatenate([raw[from_idx:],
-                                                self._pending])
-                if times_batch is not None:
-                    self._pending_times = np.concatenate(
-                        [times_batch[from_idx:], self._pending_times])
+                def _requeue(from_idx):
+                    self._pending = np.concatenate([raw[from_idx:],
+                                                    self._pending])
+                    if times_batch is not None:
+                        self._pending_times = np.concatenate(
+                            [times_batch[from_idx:], self._pending_times])
 
-            try:
-                batch = parse_eti_frames(raw)
-            except EnsembleReconfigured:
-                # the layout changes inside the batch: modulate the whole
-                # TFs before the change, then restart at the change with a
-                # new modulator.  (dabmod_tpu requeues the whole batch, takes
-                # the same mixed batch again, and its restart loop gives up.)
-                k = _layout_run(raw)
-                keep = (k // C) * C
-                if keep == 0:
-                    # less than a TF of the old layout is left: drop it and
-                    # realign the new layout to FP 0, as the reference's
-                    # restart does (src/DabMod.cpp:683-692, 726-731)
-                    log.warning("ensemble reconfigured; dropping %d ETI "
-                                "frames of the old layout", k)
-                    _requeue(k)
+                try:
+                    batch = parse_eti_frames(raw)
+                except EnsembleReconfigured:
+                    # the layout changes inside the batch: modulate the
+                    # whole TFs before the change, then restart at the change
+                    # with a new modulator.  (dabmod_tpu requeues the whole
+                    # batch, takes the same mixed batch again, and its
+                    # restart loop gives up.)
+                    k = _layout_run(raw)
+                    keep = (k // C) * C
+                    if keep == 0:
+                        # less than a TF of the old layout is left: drop it
+                        # and realign the new layout to FP 0, as the
+                        # reference's restart does (src/DabMod.cpp:683-692,
+                        # 726-731)
+                        log.warning("ensemble reconfigured; dropping %d ETI "
+                                    "frames of the old layout", k)
+                        _requeue(k)
+                        self._aligned = False
+                        self._last_fct = -1
+                        self.modulator = None
+                        return RunResult.RECONFIGURE
+                    _requeue(keep)
+                    raw = raw[:keep]
+                    if times_batch is not None:
+                        times_batch = times_batch[:keep]
+                    T = keep
+                    batch = parse_eti_frames(raw)
+
+                try:
+                    self._check_continuity(batch)
+                except FctDiscontinuity as e:
+                    log.warning("%s", e.args[0])
+                    # requeue the frames from the discontinuity on; the
+                    # restart realigns to FP 0 there (the reference restarts
+                    # its whole flowgraph at this point,
+                    # src/DabMod.cpp:694-707)
+                    _requeue(e.args[1])
                     self._aligned = False
                     self._last_fct = -1
-                    self.modulator = None
-                    return RunResult.RECONFIGURE
-                _requeue(keep)
-                raw = raw[:keep]
-                if times_batch is not None:
-                    times_batch = times_batch[:keep]
-                T = keep
-                batch = parse_eti_frames(raw)
+                    return RunResult.AGAIN
 
-            try:
-                self._check_continuity(batch)
-            except FctDiscontinuity as e:
-                log.warning("%s", e.args[0])
-                # requeue the frames from the discontinuity on; the restart
-                # realigns to FP 0 there (the reference restarts its whole
-                # flowgraph at this point, src/DabMod.cpp:694-707)
-                _requeue(e.args[1])
-                self._aligned = False
-                self._last_fct = -1
-                return RunResult.AGAIN
+                # one timestamp per *transmission frame* (its earliest
+                # ETI frame's), so SFN gating can act per TF downstream
+                # (ref: src/output/SDR.cpp:135-201): EDI carries UTC, ETI
+                # needs the MNSC decode
+                if times_batch is not None and len(times_batch):
+                    tf_ts = self._edi_timestamps(batch, times_batch, C)
+                else:
+                    tf_ts = self.ts_decoder.update_eti_batch(
+                        batch.fp, batch.mnsc, batch.tist_pps, batch.fct, C)
 
-            # one timestamp per *transmission frame* (its earliest ETI
-            # frame's), so SFN gating can act per TF downstream (ref:
-            # src/output/SDR.cpp:135-201): EDI carries UTC, ETI needs the
-            # MNSC decode
-            if times_batch is not None and len(times_batch):
-                tf_ts = self._edi_timestamps(batch, times_batch, C)
-            else:
-                tf_ts = self.ts_decoder.update_eti_batch(
-                    batch.fp, batch.mnsc, batch.tist_pps, batch.fct, C)
-
-            # feed the FIC decoder for ensemble info (RC `ensemble info`)
-            self.fic_decoder.process(batch.fic[0].tobytes())
+                # feed the FIC decoder for ensemble info (RC `ensemble info`)
+                self.fic_decoder.process(batch.fic[0].tobytes())
 
             self._tracepoint("modulate,dispatch %d" % T)
-            t0 = time.perf_counter()
-            fic = self._upload(batch.fic)
-            subs = tuple(self._upload(x) for x in batch.subchannels)
-            t1 = time.perf_counter()
-            if self.settings.trace_dir:
-                # per-stage .dat dumps (the reference's --enable-trace
-                # node files): synchronises on every stage -- debug only
-                iq, self.state, stats = self.modulator.modulate_traced(
-                    fic, subs, self.state, self.settings.trace_dir)
-            else:
-                iq, self.state, stats = self.modulator.modulate(
-                    fic, subs, self.state)
-            t2 = time.perf_counter()
-            iq = (tuple(self._download(x) for x in iq)
-                  if isinstance(iq, tuple) else self._download(iq))
-            stats = {k: self._download(v) for k, v in stats.items()}
-            ready = None
-            if self._cuda:
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(self.device))
-            self.timings["stage_in_s"] += t1 - t0
-            self.timings["modulate_s"] += t2 - t1
-            # pin_alloc_s was counted inside this span, by _download
-            self.timings["copy_out_s"] += time.perf_counter() - t2
+            with span(self.timings, "stage_in"):
+                fic = self._upload(batch.fic)
+                subs = tuple(self._upload(x) for x in batch.subchannels)
+            with span(self.timings, "issue", key="modulate"):
+                if self.settings.trace_dir:
+                    # per-stage .dat dumps (the reference's --enable-trace
+                    # node files): synchronises on every stage -- debug only
+                    iq, self.state, stats = self.modulator.modulate_traced(
+                        fic, subs, self.state, self.settings.trace_dir)
+                else:
+                    iq, self.state, stats = self.modulator.modulate(
+                        fic, subs, self.state)
+            with span(self.timings, "copy_out"):
+                iq = (tuple(self._download(x) for x in iq)
+                      if isinstance(iq, tuple) else self._download(iq))
+                stats = {k: self._download(v) for k, v in stats.items()}
+                ready = None
+                if self._cuda:
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(self.device))
             meta = [(int(batch.fct[i * C]), tf_ts[i])
                     for i in range(len(tf_ts))]
             p = self.modulator.p
             n_cells = (T // C) * p.spacing * (p.nb_symbols + 1)
-            self._out_queue.put((iq, stats, ready,
-                                 self.modulator.host_backend, meta, T,
-                                 n_cells))
+            # blocks while the batches in flight fill the fetch queue: the
+            # main thread's wait for the fetch thread
+            with span(self.timings, "handoff"):
+                self._out_queue.put((iq, stats, ready,
+                                     self.modulator.host_backend, meta, T,
+                                     n_cells))
             self.framecount += T
             if self._t0 is None:
                 self._t0 = time.perf_counter()

@@ -509,8 +509,10 @@ def _a10b_run(pkg, kw, frames, tmp_path, monkeypatch):
     else:
         counters = {k: getattr(rt.output, k) for k in (
             "frames", "queue_overflows", "dropped", "muted", "underruns")}
+        # the device's own clock, and the port's queue wait (a time, which
+        # dabmod_tpu does not report)
         rc = dict((n, v) for n, v in pkg["rcs"].show("sdr")
-                  if n != "device_time")        # the device's own clock
+                  if n not in ("device_time", "queue_wait_s"))
         sdr_state = (counters, rc)
     return tfs, sdr_state
 

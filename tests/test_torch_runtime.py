@@ -1021,7 +1021,8 @@ def test_zmq_sink_matches_reference(fmt, tmp_path, _both_rc_down):
 def test_sdr_rc_matches_reference(tmp_path, _both_rc_down):
     """The `sdr` RC module of a loopback sink: the same parameters and
     values as dabmod_tpu's, the setters reach the device and the sink, and
-    the counters after a run agree."""
+    the counters after a run agree; the port adds the queue's wait
+    (`queue_wait_s`, read-only), which dabmod_tpu does not have."""
     inp = _write_raw(tmp_path, synth_eti_batch(8, mode=1, seed=59))
     shown = {}
     for which, (Settings, make, registry) in BOTH.items():
@@ -1041,5 +1042,10 @@ def test_sdr_rc_matches_reference(tmp_path, _both_rc_down):
         shown[which] = registry.show("sdr")
         with pytest.raises(Exception, match="read-only"):
             registry.set_param("sdr", "frames", "0")
-    assert shown["torch"] == shown["jax"]
+    with pytest.raises(Exception, match="read-only"):
+        rcs.set_param("sdr", "queue_wait_s", "0")
+    waited = [kv for kv in shown["torch"] if kv[0] == "queue_wait_s"]
+    assert len(waited) == 1 and float(waited[0][1]) >= 0
+    assert [kv for kv in shown["torch"]
+            if kv[0] != "queue_wait_s"] == shown["jax"]
     assert dict(shown["torch"])["frames"] == "2"
