@@ -2066,6 +2066,14 @@ def phase_runtime(torch, steps):
                                  "cpu", RUNTIME_COMPARED)
         what = _compare_files(name, fmt, outs["card"], outs["cpu"],
                               "fft_engine" in mod)
+        interleaved = (rt.host_interleaved_batches,
+                       rt_cpu.host_interleaved_batches)
+        if fmt == "complexf":
+            # the card's step makes the f32 pairs; the CPU's fetch thread
+            # interleaves each batch's planes (dabmod_tpu's contract)
+            check(interleaved == (0, rt_cpu.framecount // (BATCH_TF * 4)),
+                  f"[7] {name}: batches interleaved on the host (card, "
+                  f"CPU) {interleaved}")
         # the timed run: the modulator comes from get_modulator's cache
         wall_t, rt_t = _run_runtime(_write_ini(d, name, eti, outs["timed"]),
                                     "cuda")
@@ -2090,7 +2098,8 @@ def phase_runtime(torch, steps):
             "share_of_wall": {k: v / wall_t for k, v in
                               rt_t.timings.items()},
             "read_share": rt_t.timings["read_s"] / wall_t,
-            "vs_cpu": what, "cpu_frames_compared": rt_cpu.framecount}
+            "vs_cpu": what, "cpu_frames_compared": rt_cpu.framecount,
+            "host_interleaved_batches": interleaved}
         records[name] = rec
         log(f"[7] runtime {name}: {n_frames} ETI frames on the card, "
             f"launches {counts}; first {RUNTIME_COMPARED} batches vs the "
@@ -2535,6 +2544,11 @@ def phase_live(torch):
                              _loopback_ini(free_port())),
             "cpu", LIVE_COMPARED, keep)
         common, worst = _compare_live(name, got, ref, "f32")
+        check(rt.host_interleaved_batches == 0
+              and rt_cpu.host_interleaved_batches == LIVE_COMPARED,
+              f"[8] {name}: batches interleaved on the host: card "
+              f"{rt.host_interleaved_batches}, CPU "
+              f"{rt_cpu.host_interleaved_batches}")
         got_keys = [k for k, _ in got["order"][:keep]]
         ref_keys = [k for k, _ in ref["order"][:keep]]
         check(None not in got_keys and got_keys == ref_keys,

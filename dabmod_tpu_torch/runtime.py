@@ -23,7 +23,9 @@ The steady-state loop is a pipeline of three threads and the card:
 so no thread but the main one touches the card: the fetch thread waits on
 an event and reads host memory only, and an RC change that needs a new
 modulator is built on the main thread.  On the CPU the same code runs with
-plain tensors and no event.  This is the analogue of the reference's
+plain tensors and no event, and the fetch thread interleaves an f32 sink's
+(re, im) planes into pairs, as dabmod_tpu's does; on the card the captured
+step makes the pairs.  This is the analogue of the reference's
 PipelinedModCodec worker threads (src/ModPlugin.cpp:76-154).
 """
 from __future__ import annotations
@@ -75,11 +77,11 @@ RC_FAULT_POLL_FRAMES = 250
 # bytes into pinned memory and their copy launched), `modulate` (the
 # step's host issue), `copy_out` (the output's copy launched), `handoff`
 # (the wait for a free place among the batches in flight).  Fetch thread:
-# `fetch_wait` (for the card), `fetch` (the host work after it: the f32
-# interleave, the dexter chain).  Writer thread: `write` (the sink's write;
-# an SDR sink's only queues each TF for its device thread), and
-# `sink_queue` (the SDR sink's TFs' wait in that queue, summed by its
-# device thread).
+# `fetch_wait` (for the card), `fetch` (the host work after it: the stats
+# to NumPy, the f32 interleave on the CPU, the dexter chain).  Writer
+# thread: `write` (the sink's write; an SDR sink's only queues each TF for
+# its device thread), and `sink_queue` (the SDR sink's TFs' wait in that
+# queue, summed by its device thread).
 TIMINGS = ("read_s", "read_decode_s", "parse_s", "stage_in_s", "modulate_s",
            "copy_out_s", "handoff_s", "fetch_wait_s", "fetch_s", "write_s",
            "sink_queue_s")
@@ -93,15 +95,18 @@ class ModRuntime:
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         self.settings = settings
-        # f32 sinks take the planes contract: the device skips the
-        # interleave and the fetch thread assembles the pairs
-        # (ModSettings.device_interleave; dabmod_tpu/runtime.py:61-69)
+        # f32 sinks on the CPU take the planes contract, as dabmod_tpu's
+        # do: the step skips the interleave and the fetch thread assembles
+        # the pairs (ModSettings.device_interleave; dabmod_tpu/runtime.py:
+        # 58-69, where the TPU's minor-axis interleave is the cost).  On
+        # the card the step's own planes_to_pairs makes them inside the
+        # graph, and the fetch thread hands on a view of the pinned copy.
         f32_file = (settings.output == "file"
                     and settings.file_output_format in F32_FORMATS)
         f32_zmq = (settings.output == "zmq"
                    and settings.zmq_output_format not in ("s16", "u8", "s8"))
         f32_sdr = settings.output in ("uhd", "soapy", "lime", "loopback")
-        if f32_file or f32_zmq or f32_sdr:
+        if not self._cuda and (f32_file or f32_zmq or f32_sdr):
             settings.device_interleave = False
         self.reader = open_input(settings)
         try:
@@ -131,6 +136,8 @@ class ModRuntime:
         self._t0 = None
         self._frames_timed = 0
         self.last_stats = {}
+        # batches whose f32 pairs the fetch thread assembled from planes
+        self.host_interleaved_batches = 0
         self._next_fault_poll = RC_FAULT_POLL_FRAMES
         self._frames_since_clip_poll = RC_FAULT_POLL_FRAMES
         self._frames_since_stats_poll = RC_FAULT_POLL_FRAMES
@@ -453,13 +460,15 @@ class ModRuntime:
                 self._frames_since_stats_poll = 0
                 self._note_stats(stats, n_cells)
         if isinstance(iq, tuple):
-            # planes contract: interleave here, at the same host boundary
-            # where the reference's FormatConverter assembles wire bytes
+            # planes contract (the CPU's f32 sinks): interleave here, at the
+            # same host boundary where the reference's FormatConverter
+            # assembles wire bytes
             re = iq[0].numpy().reshape(len(meta), -1)
             im = iq[1].numpy().reshape(len(meta), -1)
             arr = np.empty((*re.shape, 2), np.float32)
             arr[..., 0] = re
             arr[..., 1] = im
+            self.host_interleaved_batches += 1
             return arr, stats
         arr = iq.numpy()
         if hb is not None:

@@ -493,16 +493,21 @@ def _poly_file(directory, am=POLY_AM, pm=POLY_PM, name="poly.coef"):
     return path
 
 
+def _dpd_chain_kw(tmp_path):
+    """chip_smoke.py's realistic17_dpd_8m192 chain (the benchmark's
+    r17_dpd8m192): TII (comb 5, pattern 31), CFR 40/3, overlap 90, the
+    default FIR, 8.192 MS/s, the poly DPD."""
+    return dict(tii_enable=True, tii_comb=5, tii_pattern=31, enable_cfr=True,
+                cfr_clip=40.0, cfr_error_clip=3.0, ofdm_window_overlap=90,
+                filter_taps_file="default", output_rate=8_192_000,
+                poly_coef_file=_poly_file(tmp_path))
+
+
 def _dpd_chain(tmp_path):
-    """chip_smoke.py's realistic17_dpd_8m192 settings: TII (comb 5,
-    pattern 31), CFR 40/3, overlap 90, the default FIR, 8.192 MS/s, the
-    poly DPD, f32 planes at the UHD scale."""
+    """The DPD chain's settings with f32 planes at the UHD scale."""
     return ModSettings(
-        dab_mode=1, output="uhd", device_interleave=False, tii_enable=True,
-        tii_comb=5, tii_pattern=31, enable_cfr=True, cfr_clip=40.0,
-        cfr_error_clip=3.0, ofdm_window_overlap=90,
-        filter_taps_file="default", output_rate=8_192_000,
-        poly_coef_file=_poly_file(tmp_path)).normalise_for_output()
+        dab_mode=1, output="uhd", device_interleave=False,
+        **_dpd_chain_kw(tmp_path)).normalise_for_output()
 
 
 def _run_both(card, settings, n_batches=2, seed=6, traced=None):
@@ -759,6 +764,63 @@ def test_runtime_uploads_through_pinned_memory(card, tmp_path):
     torch.cuda.synchronize()
     assert down.is_pinned() and torch.equal(down, up.cpu())
     rt.close()
+
+
+def _f32_file_settings(tmp_path, chain, inp, out, **kw):
+    """A complexf file sink behind the plain TM I chain ("main") or the DPD
+    chain at the UHD scale, as r17_dpd8m192 transmits it ("dpd_8m192"),
+    2 TFs a batch."""
+    extra = _dpd_chain_kw(tmp_path) if chain == "dpd_8m192" else {}
+    s = ModSettings(input_name=str(inp), output="file",
+                    output_name=str(out), file_output_format="complexf",
+                    batch_tf=2, **extra, **kw).normalise_for_output()
+    if chain == "dpd_8m192":
+        s.normalise = 1.0 / tables.NORMALISE_FACTOR_SDR
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ["main", "dpd_8m192"])
+def test_runtime_makes_f32_pairs_on_card(card, tmp_path, chain):
+    """An f32 sink on the card: the captured step ends in planes_to_pairs
+    and the fetch thread interleaves no batch.  The complexf file equals,
+    byte for byte, the planes the card's step returns with
+    device_interleave=False for the same batches, interleaved here; and
+    the CPU runtime's file (the planes contract, one host interleave a
+    batch) within 3e-5*max|ref|, 1e-4*max|ref| after the poly DPD."""
+    from dabmod_tpu_torch.runtime import ModRuntime
+    raw = synth_eti_batch(16, mode=1, subch_specs=BENCH_SPECS, seed=19)
+    inp = tmp_path / "in.eti"
+    inp.write_bytes(raw.tobytes())
+    files, runtimes = {}, {}
+    for key, dev in (("card", card), ("cpu", "cpu")):
+        out = tmp_path / f"{key}.iq"
+        rt = ModRuntime(_f32_file_settings(tmp_path, chain, inp, out),
+                        device=dev)
+        assert rt.run() == 0
+        rt.close()
+        files[key], runtimes[key] = out.read_bytes(), rt
+    gpu, cpu = runtimes["card"], runtimes["cpu"]
+    assert gpu.settings.device_interleave and not gpu.modulator.emits_planes
+    assert gpu.host_interleaved_batches == 0
+    assert cpu.modulator.emits_planes and cpu.host_interleaved_batches == 2
+
+    batches = [parse_eti_frames(raw[:8]), parse_eti_frames(raw[8:])]
+    m = Modulator(batches[0].layout, _f32_file_settings(
+        tmp_path, chain, inp, tmp_path / "unused.iq",
+        device_interleave=False), device=card)
+    state, pairs = m.init_state(), []
+    for b in batches:
+        (re, im), state, _ = m.modulate_eti(b, state)
+        pairs.append(torch.stack([re, im], -1).cpu().numpy())
+    assert files["card"] == np.concatenate(pairs).tobytes()
+
+    g = np.frombuffer(files["card"], np.float32)
+    r = np.frombuffer(files["cpu"], np.float32)
+    assert g.size == r.size == 4 * tables.mode_params(1).tf_samples * 2 * (
+        4 if chain == "dpd_8m192" else 1)
+    rel = 1e-4 if chain == "dpd_8m192" else 3e-5
+    np.testing.assert_allclose(g, r, atol=rel * np.abs(r).max())
 
 
 # ---------------------------------------------------------------------------

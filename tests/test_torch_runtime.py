@@ -274,6 +274,64 @@ def test_emits_planes_matches_reference(fmt, kw):
         assert m._wire_fmt == mj._wire_fmt
 
 
+@pytest.mark.parametrize("fmt,planes", [("complexf", True), ("s16", False)])
+def test_cpu_runtime_interleaves_f32_planes_on_the_host(tmp_path, fmt,
+                                                        planes):
+    """On the CPU an f32 sink takes dabmod_tpu's planes contract: the step
+    returns (re, im) planes and the fetch thread interleaves them, one
+    `host_interleaved_batches` a batch; s16 words are never interleaved on
+    the host."""
+    inp = _write_raw(tmp_path, synth_eti_batch(16, mode=1))
+    s = _settings(inp, str(tmp_path / "o.iq"), fmt, batch_tf=2)
+    rt = _run(s)
+    assert s.device_interleave is not planes
+    assert rt.modulator.emits_planes is planes
+    assert rt.host_interleaved_batches == (2 if planes else 0)
+
+
+def test_pairs_from_the_step_write_the_planes_bytes(tmp_path):
+    """The card's contract for f32 sinks (the step returns [B, N, 2] pairs,
+    here kept on the CPU by setting it after construction) writes the
+    planes contract's file byte for byte, with no host interleave."""
+    inp = _write_raw(tmp_path, synth_eti_batch(16, mode=1, seed=3))
+    outs, counts = {}, {}
+    for pairs in (False, True):
+        out = tmp_path / f"o_{pairs}.iq"
+        rt = ModRuntime(_settings(inp, str(out), batch_tf=2), device="cpu")
+        rt.settings.device_interleave = pairs
+        try:
+            assert rt.run() == 0
+        finally:
+            rt.close()
+        assert rt.modulator.emits_planes is not pairs
+        outs[pairs] = out.read_bytes()
+        counts[pairs] = rt.host_interleaved_batches
+    assert len(outs[True]) == 4 * TF * 2 * 4
+    assert outs[True] == outs[False]
+    assert counts == {False: 2, True: 0}
+
+
+def test_fetch_hands_pairs_on_as_a_view(tmp_path):
+    """The fetch thread's host work: pairs go on as a view of the fetched
+    tensor (on the card, its pinned copy), planes into a fresh [B, N, 2]
+    array, counted."""
+    inp = _write_raw(tmp_path, synth_eti_batch(4, mode=1))
+    rt = ModRuntime(_settings(inp, str(tmp_path / "o.iq")), device="cpu")
+    meta = [(0, None), (4, None)]
+    try:
+        pairs = torch.arange(2 * 6 * 2, dtype=torch.float32).reshape(2, 6, 2)
+        arr, stats = rt._fetch(pairs, {}, None, meta, 8, 1)
+        assert np.shares_memory(arr, pairs.numpy()) and stats == {}
+        assert rt.host_interleaved_batches == 0
+        arr, _ = rt._fetch((pairs[..., 0].clone(), pairs[..., 1].clone()),
+                           {}, None, meta, 8, 1)
+        assert not np.shares_memory(arr, pairs.numpy())
+        np.testing.assert_array_equal(arr, pairs.numpy())
+        assert rt.host_interleaved_batches == 1
+    finally:
+        rt.close()
+
+
 # ---------------------------------------------------------------------------
 # the runtime's supervisor (tests/test_runtime.py), on the port
 # ---------------------------------------------------------------------------
