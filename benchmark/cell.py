@@ -62,6 +62,34 @@ def cif_count(cfg: dict) -> int:
     return dab.MODES[cfg["reference"]["mode"]].cif_count
 
 
+def reference_module(cfg: dict):
+    """The plain reference that the configuration names under
+    "reference_module": the module reference/<name>.py, reference/chain.py
+    where the key is absent.  It defines Chain(settings, device,
+    precision), whose render(frames, first_tf, keep=1) gives the wire
+    samples [keep, n, 2], and CONTROL_PRECISION, the precision of its
+    control."""
+    name = cfg.get("reference_module", "chain")
+    if not (isinstance(name, str) and name.isidentifier()
+            and os.path.isfile(os.path.join(BENCH, "reference",
+                                            name + ".py"))):
+        raise ValueError(f"configuration {cfg.get('name')!r}: "
+                         f"reference_module {name!r} names no module of "
+                         "reference/")
+    mod = importlib.import_module("reference." + name)
+    if not hasattr(mod, "Chain") or not hasattr(mod, "CONTROL_PRECISION"):
+        raise ValueError(f"configuration {cfg.get('name')!r}: reference/"
+                         f"{name}.py defines no Chain or CONTROL_PRECISION")
+    return mod
+
+
+def reference_chain(cfg: dict, device, precision: str):
+    """The configuration's plain reference, built on its settings at
+    `precision`."""
+    return reference_module(cfg).Chain(reference_settings(cfg), device,
+                                       precision)
+
+
 def reference_settings(cfg: dict) -> dict:
     """The configuration's settings for the plain reference."""
     from reference import dab
@@ -118,7 +146,7 @@ def write_ini(path: str, sections: dict):
 class Cell:
     def __init__(self, cell: dict, seed: int, seconds: float, trace: bool,
                  t_process: float, device: str = "cuda",
-                 traffic_overrides: dict | None = None):
+                 traffic_overrides: dict | None = None, e2e=()):
         self.cfg = load_json("configs", cell["config"])
         self.traffic = {**load_json("traffic", cell["traffic"]),
                         **(traffic_overrides or {})}
@@ -131,6 +159,12 @@ class Cell:
         self.gen = None
         self.steps = 0
         self.trace_at = (math.inf, math.inf)
+        # step_card_ms_per_tf: CUDA events at each step of an untraced
+        # window, (start, end, TFs) a step
+        self.card_clock = "step_card_ms_per_tf" in e2e and not trace
+        self.step_clock = []
+        self._replay_at = None
+        self._unhook = None
         self.tmp = tempfile.mkdtemp(prefix="dabmod_bench_")
         if self.open_loop:
             t = self.traffic
@@ -214,13 +248,45 @@ class Cell:
         m = rt.modulator
         inner = m.modulate
         self.steps = 0
+        if self.card_clock:
+            self._hook_replay()
 
         def modulate(fic, subch, state):
+            start = card_event() if self.card_clock else None
+            self._replay_at = None
             with self._range("bench.step.modulate"):
                 out = inner(fic, subch, state)
+            if start is not None:
+                # from the step's first graph launch where it replays one:
+                # the input copies before it, and the card's wait for the
+                # host to enqueue them, are left out
+                self.step_clock.append((self._replay_at or start,
+                                        card_event(),
+                                        fic.shape[0] // self.cif))
             self.steps += 1
             return out
         m.modulate = modulate
+
+    def _hook_replay(self):
+        """An event recorded on the stream as each step launches its first
+        CUDA graph (torch.cuda.CUDAGraph.replay, undone by cleanup)."""
+        import torch
+        cls = torch.cuda.CUDAGraph
+        own = cls.__dict__.get("replay")
+        inner = cls.replay
+
+        def replay(graph, *args, **kwargs):
+            if self._replay_at is None:
+                self._replay_at = card_event()
+            return inner(graph, *args, **kwargs)
+        cls.replay = replay
+
+        def unhook():
+            if own is None:
+                del cls.replay
+            else:
+                cls.replay = own
+        self._unhook = unhook
 
     def _profiler_tick(self, now, rt, torch):
         if self.prof_state == "off" and now >= self.trace_at[0]:
@@ -386,6 +452,12 @@ class Cell:
             hi = during[-1] if during else lo
             res.update(attempted=hi - lo,
                        failed=self.log.lost_frames(lo, hi))
+        if self.step_clock:
+            # each step's span on the card's own clock: from its graph's
+            # launch (or its start) to its last operation
+            ms = sum(a.elapsed_time(b) for a, b, _ in self.step_clock)
+            tfs = sum(n for _, _, n in self.step_clock)
+            res["step_card_ms_per_tf"] = ms / tfs
         res["lost_frames"] = self.log.lost_frames() + C * self.log.disorder
         res["run_result"] = self.result.name
         if self.device != "cpu":
@@ -414,6 +486,9 @@ class Cell:
             torch.cuda.empty_cache()
 
     def cleanup(self):
+        if self._unhook is not None:
+            self._unhook()
+            self._unhook = None
         if self.gen is not None:
             self.gen.stop()
         shutil.rmtree(self.tmp, ignore_errors=True)
@@ -428,6 +503,15 @@ class Cell:
             return self.frames[first:last]
         n = self.frames.shape[0]
         return self.frames[np.arange(first, last) % n]
+
+
+def card_event():
+    """A CUDA event that keeps time, recorded on the current stream (the
+    one the runtime issues the step on)."""
+    import torch
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
 
 
 def host_cpu() -> dict:
@@ -466,8 +550,7 @@ def judge(cell: Cell, samples: dict, device: str,
           precision: str = "f64") -> dict:
     """Render each sampled TF with the plain reference and compare; the
     largest gap of each kind over the sample."""
-    from reference.chain import Chain
-    chain = Chain(reference_settings(cell.cfg), device, precision)
+    chain = reference_chain(cell.cfg, device, precision)
     wire = cell.cfg["reference"]["wire"]
     worst = {}
     for tf, prog in sorted(samples.items()):

@@ -1,7 +1,7 @@
 """The control of the comparison that decides `correct`: the plain reference
-put in the program's place and computed in TF32 (reference/chain.py,
-precision="tf32"), at the cell's own size, judged by the same numbers and
-limits as a run.  It has to come out as not correct.
+put in the program's place and computed at its module's CONTROL_PRECISION
+(TF32 for reference/chain.py), at the cell's own size, judged by the same
+numbers and limits as a run.  It has to come out as not correct.
 
     python3 benchmark/control.py --workload <cell> --seeds 1,2,3 [--cpu]
 
@@ -31,9 +31,9 @@ BULK_TFS = 120_000
 
 def control_readings(workload: dict, seed: int, seconds: float,
                      device: str, n_tfs: int | None = None) -> dict:
-    """The control's numbers for one seed: the TF32 reference against the
-    reference on `n_tfs` TFs (the cell's check_tfs by default)."""
-    from reference.chain import Chain
+    """The control's numbers for one seed: the reference at its control
+    precision against the reference on `n_tfs` TFs (the cell's check_tfs
+    by default)."""
     cfg = cell_mod.load_json("configs", workload["config"])
     traffic = cell_mod.load_json("traffic", workload["traffic"])
     ensemble = [tuple(e) for e in cfg["ensemble"]]
@@ -51,8 +51,9 @@ def control_readings(workload: dict, seed: int, seconds: float,
     frames = streams.make_frames(seed, n, ensemble)
     tfs = sorted(rng.choice(np.arange(lo, hi), size=n_tfs, replace=False))
     settings = cell_mod.reference_settings(cfg)
-    ref = Chain(settings, device, "f64")
-    ctl = Chain(settings, device, "tf32")
+    ref = cell_mod.reference_chain(cfg, device, "f64")
+    ctl = cell_mod.reference_chain(
+        cfg, device, cell_mod.reference_module(cfg).CONTROL_PRECISION)
     wire = settings["wire"]
     worst = {}
     for tf in tfs:

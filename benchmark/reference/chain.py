@@ -32,6 +32,7 @@ import torch
 from . import dab
 
 F64, C128 = torch.float64, torch.complex128
+CONTROL_PRECISION = "tf32"
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:

@@ -97,7 +97,10 @@ def main(argv=None) -> int:
     cell = cells[a.workload]
 
     import cell as cell_mod
-    run = cell_mod.Cell(cell, a.seed, a.seconds, bool(a.trace), T_PROCESS)
+    e2e = [m["name"] for m in spec["end_to_end"]
+           if cell["name"] in m.get("workloads", [cell["name"]])]
+    run = cell_mod.Cell(cell, a.seed, a.seconds, bool(a.trace), T_PROCESS,
+                        e2e=e2e)
     try:
         import torch
         if not torch.cuda.is_available() or \
@@ -112,8 +115,9 @@ def main(argv=None) -> int:
     finally:
         run.cleanup()
     line = result_line(spec, cell, run, res, checks, bool(a.trace))
-    diag = {k: res[k] for k in ("frames_per_s", "latency_p50_ms",
-                                "latency_p95_ms", "frames_read") if k in res}
+    diag = {k: res[k] for k in ("frames_per_s", "step_card_ms_per_tf",
+                                "latency_p50_ms", "latency_p95_ms",
+                                "frames_read") if k in res}
     diag["setup_s"] = run.setup_s
     diag["window_timings_s"] = {k: round(v, 4) for k, v in
                                 run.timings_window.items()}
@@ -188,7 +192,8 @@ def result_line(spec, cell, run, res, checks, traced) -> dict:
         t = res.get("trace")
         if t is not None:
             ctx = {"device_kind": device["kind"],
-                   "batch_tf": run.traffic["batch_tf"], "rate": run.rate}
+                   "batch_tf": run.traffic["batch_tf"], "rate": run.rate,
+                   "frames_per_s": res.get("frames_per_s")}
             import cell as cell_mod
             for m in spec["per_layer"]:
                 if cell["name"] not in m.get("workloads", [cell["name"]]):
