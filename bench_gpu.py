@@ -255,7 +255,9 @@ def expected_stages(m) -> list:
     if m._dexter:
         return st + ["dexter_quantise"]
     if m._kiss:
-        return st + ["kiss_ifft", "guard_interval", "format_convert"]
+        # with no window overlap K4 writes the wire words itself
+        return st + (["kiss_ifft", "guard_interval", "format_convert"]
+                     if s.ofdm_window_overlap else ["kiss_ifft"])
     st += ["ofdm_ifft"] + (["cfr"] if s.enable_cfr else [])
     st += ["gain", "guard_interval"]
     rp = m._runtime_params
@@ -352,7 +354,7 @@ def attribute_stages(torch, events, stages, n_steps) -> dict:
 
 # the stage each counted kernel may run under
 KERNEL_STAGE = {"ofdm_ifft": "ofdm_ifft", "ofdm_cfr": "ofdm_ifft",
-                "resample_poly": "resampler"}
+                "resample_poly": "resampler", "kiss_ifft": "kiss_ifft"}
 
 
 def stage_problems(rec, other_max=0.05, busy_rel=0.02) -> list:

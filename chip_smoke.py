@@ -29,6 +29,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      43-44); its clip counts may differ from the plain version's by the
      samples within 1e-5 (relative) of a threshold, which it prints; and
      on one symbol and on 13;
+   * K4, the KISS fixed-point transform, at all four spacings, both its
+     outputs (the s16 wire words with the cyclic prefixes, and the int32
+     planes the windowed guard interval takes), bit for bit against its
+     plain version on the CPU, on the same random planes as K1 (at TM I
+     the main path's [24, 77, 1536]), and again on one symbol and on 13
+     (a ragged last block below N = 2048);
    * K3, the polyphase resampler, at 3.072, 4.096 and 8.192 MS/s and
      (resampler_mode="poly") 1.024 and 1.792 MS/s, so L/M = 3/2, 2, 4, 1/2
      and 7/8 (the last through the kernel's run-time-M instance), on a
@@ -37,7 +43,7 @@ Phases, in order; any failure exits non-zero and prints no result:
 3. The front end against the reference goldens in tests/golden/
    (e2e_symbols: 2 TFs, 2 sub-channels; e2e_real_symbols: 4 TFs, the
    17-sub-channel ensemble).
-4. Four paths at full width, TM I, batch_tf=24 (24 x 196,608 samples a
+4. Five paths at full width, TM I, batch_tf=24 (24 x 196,608 samples a
    step in), two consecutive batches carrying the state, against the port
    run on the CPU on the same ETI:
    * "main": the 17-sub-channel / 855-CU ensemble and the 2-sub-channel
@@ -57,7 +63,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      (K2, K3) and the poly DPD (tests/test_filters.py:133-134's
      coefficients, written as a format-1 file in a temporary directory),
      f32 planes at the UHD scale (1/50000), within 1e-4*max|ref| of the
-     CPU after the DPD.
+     CPU after the DPD;
+   * "realistic17_kiss": the 17-sub-channel ensemble through
+     fft_engine=kiss at overlap 10 (doc/example.ini's ofdmwindowing, the
+     benchmark's r17_kiss_s16): K4 writes int32 planes and the Q1.14
+     windowed guard interval makes the s16 words, equal to the CPU's bit
+     for bit.
    On the card Modulator.modulate replays a CUDA graph of the step
    (dabmod_tpu_torch/models/compiled.py), captured at a modulator's first
    batch after one eager warm-up; every output, stat and state tensor of
@@ -85,7 +96,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    timed without the spin and marked host_paced), its plain version, one
    PyTorch library call as a yardstick where one computes the same
    function, and the kernel's bound from this run's shapes; K3 at both
-   of the paths' rates, 8.192 and 3.072 MS/s; and the eager stages the
+   of the paths' rates, 8.192 and 3.072 MS/s; K4 writing planes (the
+   kiss path's output at overlap 10) and writing words, and its planes
+   followed by the unwindowed guard interval and the packing as torch ops
+   (what its words spare a step at overlap 0); the kiss step at overlap
+   0 ("realistic17_kiss_ov0", K4 writing the words) beside the path's
+   step; and the eager stages the
    DPD path adds (windowed guard interval, FIR, poly and LUT DPD), each
    alone at that path's shapes, beside its bytes bound.
 6. Variant runs, each on the card against the CPU at 2 TFs a batch, two
@@ -105,7 +121,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 7. The fixed-point engines and the port as a program:
    * fft_engine=kiss at overlap 0 and 90 on the golden payloads, card ==
      CPU == the reference's goldens e2e_iq_fixed / e2e_iq_fixed_ov90, bit
-     for bit; TM II-IV at 2 TFs, card == CPU bit for bit;
+     for bit; TM I at overlap 10 and TM II-IV at 2 TFs, card == CPU bit for
+     bit; each card step's graph holds one K4 launch;
    * fft_engine=dexter in TM I and TM III at overlap 0 and 12: the card's
      Q1.14 symbols and the host chain's wire words == the CPU's; both
      engines' captured steps == their eager steps on the card;
@@ -300,6 +317,9 @@ K3_TIMED_RATES = (8_192_000, 3_072_000)
 # DPD's file is added by dpd_files()
 DPD_8M192 = dict(CFR_8M192, tii_enable=True, tii_comb=5, tii_pattern=31,
                  ofdm_window_overlap=90, filter_taps_file="default")
+# upstream's fixed-point chain as doc/example.ini sets it (ofdmwindowing
+# 10), the benchmark's r17_kiss_s16
+KISS_OV10 = dict(fft_engine="kiss", ofdm_window_overlap=10)
 POLY_AM = (1.0, 0.1, -0.05, 0.02, -0.01)    # tests/test_filters.py:133-134
 POLY_PM = (0.02, -0.01, 0.005, 0.0, 0.0)
 LUT_SCALE = 2.0 ** 31                       # tests/test_filters.py:151-153
@@ -309,6 +329,10 @@ VARIANT_TF = 2        # TFs a batch in phase 6
 # NVIDIA H100 SXM data sheet: HBM3 rate and fp32 (non-tensor) peak
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# 32-bit integer multiplies: 132 SMs x 64 a clock (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0) x 1.98
+# GHz
+INT32_MUL_PER_S = 132 * 64 * 1.98e9
 
 
 def fail(msg: str):
@@ -506,6 +530,8 @@ def phase_card_and_build(torch):
                       f"{K.symbols_per_block(n)}")
         if name == "resample_poly":
             check_resampler_instances(ptxas[name])
+        if name == "kiss_ifft":
+            check_kiss_instances(ptxas[name])
         log(f"    {name}: {json.dumps(ptxas[name])}")
     from dabmod_tpu_torch import native
     t0 = time.perf_counter()
@@ -517,6 +543,27 @@ def phase_card_and_build(torch):
         f"built and loaded in {time.perf_counter() - t0:.1f} s (g++): the "
         f"EDI RS decode and the host format conversion take it")
     return card, ptxas
+
+
+def check_kiss_instances(ptxas):
+    """Each K4 instance (log2 N = 8..11): no spills, the threads and
+    symbols a block that kiss_kernel assumes, at least one block resident
+    an SM."""
+    from dabmod_tpu_torch.ops import kiss_kernel as K4
+    for log2n in range(8, 12):
+        rec = ptxas.get(str(log2n))
+        check(rec is not None, f"kiss_ifft: ptxas reports no instance "
+              f"{log2n}")
+        check(rec["spill_stores"] == 0, f"kiss_ifft {log2n}: "
+              f"{rec['spill_stores']} bytes of spill stores")
+        n = 1 << log2n
+        rec.update(K4.launch_shape(n))
+        check(rec["threads_per_block"] == K4.THREADS_PER_BLOCK
+              and rec["symbols_per_block"] == K4.symbols_per_block(n)
+              and rec["resident_blocks_per_sm"] >= 1,
+              f"kiss_ifft N={n}: the source reports {rec}, kiss_kernel "
+              f"assumes {K4.THREADS_PER_BLOCK} threads and "
+              f"{K4.symbols_per_block(n)} symbols a block")
 
 
 def check_resampler_instances(ptxas):
@@ -628,6 +675,9 @@ def phase_kernels(torch):
         if mode == 1:
             out.update(ofdm=(planes, table, clip), ofdm_ifft=err,
                        ofdm_cfr=out_cfr)
+        kiss_table = check_kiss_kernel(torch, mode, f"{shape}", planes)
+        if mode == 1:
+            out["kiss"] = (planes, kiss_table)
 
         # one symbol, and 13: not a multiple of the symbols a block
         # carries below N = 2048, so the last block is ragged
@@ -644,8 +694,46 @@ def phase_kernels(torch):
             check(err <= tol, f"ofdm_ifft TM {mode} x{n_sym}: err {err}")
             check_cfr_kernel(torch, f"TM {mode} N={p.spacing} {n_sym} "
                              f"symbol(s)", small, table, clip, K2_ERROR_CLIP)
+            check_kiss_kernel(torch, mode, f"{n_sym} symbol(s)", small)
     out["resample_poly"] = phase_resampler(torch, rng)
     return out
+
+
+def kiss_table(mode, device):
+    """K4's table for one mode: the composed carrier->bin table composed
+    again with KISS's input permutation."""
+    from dabmod_tpu_torch import tables
+    from dabmod_tpu_torch.ops import kiss_kernel
+    p = tables.mode_params(mode)
+    return kiss_kernel.make_table(mode_table(mode, device), p.null_size,
+                                  p.sym_size)
+
+
+def check_kiss_kernel(torch, mode, tag, planes):
+    """K4 on `planes` against its plain version on the CPU, bit for bit,
+    writing the s16 words (cyclic prefixes included) and writing the int32
+    planes; one launch counted a call.  Returns the mode's table on the
+    card."""
+    from dabmod_tpu_torch.ops import kiss_kernel as K4
+    table, cpu_table = kiss_table(mode, "cuda"), kiss_table(mode, "cpu")
+    host = tuple(x.cpu() for x in planes)
+    for wire in (True, False):
+        before = K4.kiss_ifft.launches
+        got = K4.kiss_ifft(planes, table, wire)
+        torch.cuda.synchronize()
+        want = K4.kiss_ifft_plain(host, cpu_table, wire)
+        got, want = ((got,), (want,)) if wire else (got, want)
+        same = all(g.dtype == w.dtype == torch.int32
+                   and torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        check(K4.kiss_ifft.launches == before + 1,
+              f"kiss_ifft TM {mode} {tag}: the launch was not counted")
+        check(same, f"kiss_ifft TM {mode} {tag} "
+              f"{'words' if wire else 'planes'}: differs from the plain "
+              f"version")
+    log(f"[2] kiss_ifft TM {mode} N={table.n} {tag}, "
+        f"{K4.symbols_per_block(table.n)} symbol(s) a block: words and "
+        f"planes equal the plain version bit for bit")
+    return table
 
 
 def k2_clip(torch, planes, table) -> float:
@@ -823,10 +911,11 @@ def _to_host(out):
 
 
 def _kernels():
-    from dabmod_tpu_torch.ops import ofdm_kernel, resampler_kernel
+    from dabmod_tpu_torch.ops import kiss_kernel, ofdm_kernel, resampler_kernel
     return {"ofdm_ifft": ofdm_kernel.ofdm_backend,
             "ofdm_cfr": ofdm_kernel.ofdm_cfr_backend,
-            "resample_poly": resampler_kernel.resample}
+            "resample_poly": resampler_kernel.resample,
+            "kiss_ifft": kiss_kernel.kiss_ifft}
 
 
 def _bits(tree) -> list:
@@ -869,7 +958,8 @@ def check_captured(tag, captured, eager):
 # each counted kernel's __global__ function, as a device trace names it
 KERNEL_SYMBOLS = {"ofdm_ifft_kernel": "ofdm_ifft",
                   "ofdm_cfr_kernel": "ofdm_cfr",
-                  "resample_poly": "resample_poly"}
+                  "resample_poly": "resample_poly",
+                  "kiss_ifft_kernel": "kiss_ifft"}
 
 
 def _kernel_of(event_name: str) -> str:
@@ -954,6 +1044,7 @@ def _paths():
         "realistic17_dpd_8m192": (
             r17, dict(DPD_8M192, poly_coef_file=dpd_files()["poly"]),
             ("ofdm_cfr", "resample_poly"), ("uhd",)),
+        "realistic17_kiss": (r17, KISS_OV10, ("kiss_ifft",), ("s16",)),
     }
 
 
@@ -1048,13 +1139,16 @@ def phase_paths(torch):
         log(f"[4] the same on the CPU (plain versions) in "
             f"{time.perf_counter() - t0:.1f} s")
         rel = DPD_REL if "poly_coef_file" in extra else 3e-5
+        # the kiss chain is integer arithmetic from the Q1.14 carriers on
+        lsb = 0 if extra.get("fft_engine") == "kiss" else 1
         for name, _specs, fmt, _b in cases:
             (g_res, n_out), (c_res, _) = gpu[(name, fmt)], cpu[(name, fmt)]
             for k, ((g, gs), (c, cs)) in enumerate(zip(g_res, c_res)):
                 tag = f"{path}/{name}/{fmt} batch {k}"
                 compare_batch(tag, fmt, g, gs, c, cs, n_out,
-                              margins[(name, fmt)][k] if extra else None,
-                              rel)
+                              margins[(name, fmt)][k]
+                              if extra.get("enable_cfr") else None,
+                              rel, lsb=lsb)
                 if extra.get("cfr_error_clip", np.inf) < 1.0:
                     check(int(cs["cfr_errclip"].min()) > 0,
                           f"{tag}: the error clip never acted in a TF")
@@ -1062,12 +1156,12 @@ def phase_paths(torch):
 
 
 def compare_batch(tag, fmt, g, gs, c, cs, n_out, margin, rel=3e-5,
-                  n_tf=BATCH_TF):
+                  n_tf=BATCH_TF, lsb=1):
     """One batch of n_tf TFs of the card against the CPU: f32 within
     rel*max|ref| (3e-5, tests/test_ofdm_kernel.py:88-89: fp32 transforms
     and reductions in other orders; DPD_REL after the poly DPD), s16
-    within 1 LSB (a float difference at a truncation edge) with equal
-    num_clipped; with CFR the clip counts within the threshold margin,
+    within `lsb` LSB (1: a float difference at a truncation edge; 0 for
+    the kiss chain) with equal num_clipped; with CFR the clip counts within the threshold margin,
     PAPR within 1e-3 dB, MER within 0.1 dB (:96) and mer_valid equal.
     Returns the samples' largest difference and its tolerance."""
     check(set(gs) == set(cs), f"{tag}: stats keys {set(gs)} != {set(cs)}")
@@ -1089,10 +1183,10 @@ def compare_batch(tag, fmt, g, gs, c, cs, n_out, margin, rel=3e-5,
                    - c.view(np.int16).astype(np.int32)).max()
         log(f"    {tag}: max int16 diff {d}, num_clipped "
             f"{int(gs['num_clipped'])} / {int(cs['num_clipped'])}")
-        check(d <= 1, f"{tag}: int16 diff {d} > 1")
+        check(d <= lsb, f"{tag}: int16 diff {d} > {lsb}")
         check(int(gs["num_clipped"]) == int(cs["num_clipped"]),
               f"{tag}: num_clipped differs")
-        res = (int(d), 1)
+        res = (int(d), lsb)
     if margin is None:
         return res
     for key, lane in (("cfr_clip", 0), ("cfr_errclip", 1)):
@@ -1349,6 +1443,73 @@ def time_ofdm_ifft(torch, cpm, sets, table, calls, err, launches, ptxas):
     return k
 
 
+def kiss_multiplies(n: int) -> int:
+    """The int32 multiplies of one KISS fixed-point transform of size n:
+    2 a C_FIXDIV and 4 a C_MUL, so 4 a point at a radix-2 stage and 5 a
+    point at a radix-4 one (adds, shifts and wraps left out)."""
+    from dabmod_tpu_torch.ops import kiss_fixed
+    return sum({2: 4, 4: 5}[p] * n for p, _ in kiss_fixed.kf_factor(n))
+
+
+def time_kiss_ifft(torch, cpm, sets, planes, table, launches, ptxas):
+    """K4 writing int32 planes (the kiss path's output at a window
+    overlap), writing the s16 words ("words_"), and its planes followed by
+    the unwindowed guard interval and the packing as torch ops
+    ("planes_gi_": what the words spare a step with no overlap); its
+    plain version, host-paced (some 1,400 int32 ops a call).  The bound
+    counts the least work: float32 carriers in, int16 pairs out, the
+    tables once, or KISS's int32 multiplies at INT32_MUL_PER_S."""
+    from dabmod_tpu_torch.ops import kiss_fixed, kiss_kernel as K4
+    from dabmod_tpu_torch.ops.ofdm import guard_interval_unwindowed
+    B, S, C = sets[0][0].shape
+    n = table.n
+
+    def planes_gi(x):
+        return kiss_fixed.pack_words(*guard_interval_unwindowed(
+            K4.kiss_ifft(x, table, False), table.null_size, table.sym_size))
+    got = planes_gi(planes)
+    check(torch.equal(got, K4.kiss_ifft(planes, table, True)),
+          "kiss_ifft: its planes through the torch guard interval and "
+          "packing differ from its words")
+    t = kernel_times(torch, {
+        "": (lambda x: K4.kiss_ifft(x, table, False), sets),
+        "words_": (lambda x: K4.kiss_ifft(x, table, True), sets),
+        "planes_gi_": (planes_gi, sets)}, cpm)
+    plain, _ = time_runs(torch, lambda: K4.kiss_ifft_plain(planes, table,
+                                                           False), n=5, warm=1)
+    nbytes = B * S * C * 8 + B * S * n * 4 + 4 * (table.gather.numel()
+                                                  + table.twiddle.numel())
+    muls = B * S * kiss_multiplies(n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_muls = muls / INT32_MUL_PER_S * 1e3
+    k = {"name": "kiss_ifft", "route": "cuda",
+         "source": "dabmod_tpu_torch/ops/csrc/kiss_ifft.cu",
+         "replaces": "dabmod_tpu/ops/kiss_fixed.py::kiss_fft_fixed (int32 "
+                     "XLA ops, no Pallas kernel)",
+         "launches": launches, "max_abs_err": 0,
+         "ms": t["ms"], "words_ms": t["words_ms"],
+         "planes_gi_ms": t["planes_gi_ms"],
+         "plain_ms": statistics.median(plain),
+         "bound_ms": max(t_bytes, t_muls),
+         "bound_by": "bytes" if t_bytes >= t_muls else "int32 multiplies",
+         "library_ms": None,
+         "library_call": "none: no PyTorch call does KISS's fixed-point "
+                         "transform",
+         **{key: v for key, v in t.items()
+            if key.endswith(("_warm_l2", "host_issue_ms", "host_paced"))},
+         "l2_sets": L2_SETS, "shape": [B, S, C, n],
+         **ptxas[str(table.log2n)],
+         "bytes": nbytes, "int32_multiplies": muls}
+    log(f"[5] kiss_ifft {B}x{S} symbols, C={C}, N={n}: planes "
+        f"{t['ms']:.4f} ms, words {t['words_ms']:.4f} ms, planes + torch "
+        f"guard interval and packing {t['planes_gi_ms']:.4f} ms (bound "
+        f"{k['bound_ms']:.4f} ms by {k['bound_by']}; plain "
+        f"{k['plain_ms']:.4f} ms, host-paced; one input set reused: "
+        f"{t['ms_warm_l2']:.4f} / {t['words_ms_warm_l2']:.4f} / "
+        f"{t['planes_gi_ms_warm_l2']:.4f} ms)")
+    return k
+
+
 def time_ofdm_cfr(torch, cpm, sets, table, calls, clip, err, stats,
                   launches, ptxas):
     from dabmod_tpu_torch.ops import ofdm_kernel as K
@@ -1541,9 +1702,9 @@ def phase_times(torch, inputs, launches, ptxas):
     total, per_path, _ = launches
     steps = {path: time_path(torch, path, ensembles[0][1], extra, fmts)
              for path, (ensembles, extra, _used, fmts) in _paths().items()}
-    # the kiss engine's step: int32 torch ops, no kernel of the port
-    steps["realistic17_kiss"] = time_path(
-        torch, "realistic17_kiss", REALISTIC_MUX_SPECS,
+    # the kiss engine's step with no window overlap: K4 writes the words
+    steps["realistic17_kiss_ov0"] = time_path(
+        torch, "realistic17_kiss_ov0", REALISTIC_MUX_SPECS,
         dict(fft_engine="kiss"), ("s16",))
     cpm = sleep_cycles_per_ms(torch)
     log(f"[5] torch.cuda._sleep: {cpm:.0f} cycles a ms")
@@ -1562,7 +1723,9 @@ def phase_times(torch, inputs, launches, ptxas):
                         sum(per_path[p]["resample_poly"]
                             for p in K3_PATHS[rate]),
                         ptxas["resample_poly"])
-          for rate in K3_TIMED_RATES]]
+          for rate in K3_TIMED_RATES],
+        time_kiss_ifft(torch, cpm, sets, *inputs["kiss"], total["kiss_ifft"],
+                       ptxas["kiss_ifft"])]
     return stages, kernels, steps
 
 
@@ -1679,7 +1842,8 @@ def check_variant(torch, name, mode, extra, fmt):
     outs, counts = drive_both(torch, mode, settings, tag=name)
     # K1 at the warm-up before the capture and at the capture (on the
     # card: the warm-up and two replays, drive_both's trace)
-    check(counts == {"ofdm_ifft": 2, "ofdm_cfr": 0, "resample_poly": 0},
+    check(counts == {"ofdm_ifft": 2, "ofdm_cfr": 0, "resample_poly": 0,
+                     "kiss_ifft": 0},
           f"[6] {name}: kernel launches {counts}")
     if name == "lut_dpd":
         check_lut_variant(torch, name, settings, outs)
@@ -1818,21 +1982,30 @@ def phase_variants(torch):
 def _kiss_runs(torch, mode, ov, batches):
     """The kiss chain on the card and on the CPU over `batches` (pairs of
     FIC and sub-channel arrays), the state carried: {device: [int32 wire
-    words on the host]}."""
+    words on the host]}.  On the card the step's graph holds one K4
+    launch, counted at its warm-up and its capture."""
     from dabmod_tpu_torch.config import ModSettings
     from dabmod_tpu_torch.models import Modulator, make_default_layout
+    from dabmod_tpu_torch.ops import kiss_kernel
     specs = BENCH_SPECS if mode == 1 else ((0, 24, 0x22),)
     s = ModSettings(dab_mode=mode, fft_engine="kiss", ofdm_window_overlap=ov)
     out = {}
     for dev in ("cuda", "cpu"):
         m = Modulator(make_default_layout(mode, specs), s, device=dev)
         state, res, bits = m.init_state(), [], []
+        before = kiss_kernel.kiss_ifft.launches
         for fic, subs in batches:
             words, state, stats = m.modulate(fic, subs, state)
             check(int(stats["num_clipped"]) == 0, "kiss: num_clipped != 0")
             res.append(words.cpu().numpy())
             bits.append(_bits((words, stats, state)))
         if dev == "cuda":
+            (cap,) = m.compiled.graphs.values()
+            check(cap.launches["kiss_ifft"] == 1
+                  and kiss_kernel.kiss_ifft.launches - before == 2,
+                  f"[7] kiss TM {mode} overlap {ov}: K4 launched "
+                  f"{kiss_kernel.kiss_ifft.launches - before} times, the "
+                  f"graph holds {cap.launches['kiss_ifft']}")
             check_captured(f"[7] kiss TM {mode} overlap {ov}", bits,
                            eager_bits(torch, m, batches))
         out[dev] = res
@@ -1863,9 +2036,12 @@ def phase_fixed_point(torch):
         log(f"[7] kiss TM I overlap {ov}: card == CPU == {name} "
             f"({ref.size // 2} samples), bit for bit; captured == eager "
             f"on the card")
-    for mode, ov in ((2, 90), (3, 63), (4, 0)):
+    for mode, ov in ((1, 10), (2, 90), (3, 63), (4, 0)):
         n = VARIANT_TF * tables.mode_params(mode).cif_count
-        raw = synth_eti_batch(2 * n, mode=mode, seed=SEED + mode)
+        # _kiss_runs' ensemble: bench.py's in TM I, one sub-channel else
+        specs = BENCH_SPECS if mode == 1 else ((0, 24, 0x22),)
+        raw = synth_eti_batch(2 * n, mode=mode, subch_specs=specs,
+                              seed=SEED + mode)
         batches = [(b.fic, tuple(b.subchannels)) for b in (
             parse_eti_frames(raw[:n]), parse_eti_frames(raw[n:]))]
         out = _kiss_runs(torch, mode, ov, batches)
@@ -1966,8 +2142,8 @@ def _runtime_inis():
             "rate=8192000\n", "[cfr]\nenable=1\nclip=40.0\nerrorclip=3.0\n",
             "complexf", ("ofdm_cfr", "resample_poly"),
             ("realistic17_cfr_8m192", "f32")),
-        "c_kiss_s16": ("fft_engine=kiss\n", "", "s16", (),
-                       ("realistic17_kiss", "s16")),
+        "c_kiss_s16": ("fft_engine=kiss\n", "", "s16", ("kiss_ifft",),
+                       ("realistic17_kiss_ov0", "s16")),
     }
 
 

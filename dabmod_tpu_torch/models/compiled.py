@@ -48,12 +48,12 @@ import weakref
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
-from ..ops import ofdm_kernel, resampler_kernel
+from ..ops import kiss_kernel, ofdm_kernel, resampler_kernel
 
 # the kernel wrappers that count their launches in a `launches` attribute
 # (looked up at each use, so a wrapper replaced at run time is the one read)
 COUNTED = ((ofdm_kernel, "ofdm_backend"), (ofdm_kernel, "ofdm_cfr_backend"),
-           (resampler_kernel, "resample"))
+           (resampler_kernel, "resample"), (kiss_kernel, "kiss_ifft"))
 
 
 def launch_counts() -> dict:

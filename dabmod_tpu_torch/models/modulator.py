@@ -28,8 +28,10 @@ step); on the CPU, and in `modulate_traced`, the step runs eagerly.
 
 The two fixed-point engines branch off after the NULL symbol, as in
 dabmod_tpu: fft_engine=kiss runs the reference's KISS int16 transform and
-the Q1.14 guard interval bit for bit (ops/kiss_fixed.py, int32 torch ops)
-into s16 wire words; fft_engine=dexter ends on the device at Q1.14 carrier
+the Q1.14 guard interval bit for bit into s16 wire words (the transform in
+the hand-written K4, ops/kiss_kernel.py, with the cyclic prefix and the
+words where no window overlaps; the windowed guard interval as int32 torch
+ops, ops/kiss_fixed.py); fft_engine=dexter ends on the device at Q1.14 carrier
 symbols [2, B, S, C] (int32), and `host_backend` (io/dexter_fft.py) runs
 the FPGA FFT accelerator chain on them on the host.
 """
@@ -47,7 +49,8 @@ from torch.profiler import record_function
 from .. import tables
 from ..config import ModSettings
 from ..eti import EnsembleLayout, EtiFrameBatch
-from ..ops import fec, fft, kiss_fixed, ofdm, ofdm_kernel, resampler_kernel
+from ..ops import (fec, fft, kiss_fixed, kiss_kernel, ofdm, ofdm_kernel,
+                   resampler_kernel)
 from ..ops.cplx import planes_from_complex, planes_to_pairs
 from ..ops.filters import (PLAIN_BLOCK, PolyphasePlan, ResamplerPlan,
                            cic_equalizer_taps, fir_filter, format_convert,
@@ -224,6 +227,9 @@ class Modulator:
         self._inv_perm_t = t(self._inv_perm, torch.int64)
         self._ofdm_table = ofdm_kernel.make_table(
             self._bin_src_pre, self._bin_valid, dev)
+        self._kiss_table = (kiss_kernel.make_table(
+            self._ofdm_table, p.null_size, p.sym_size) if self._kiss
+            else None)
 
         # --- TII in the NULL symbol (raises ValueError outside TM I, II) ---
         self._tii_vec = None
@@ -605,27 +611,30 @@ class Modulator:
     def _kiss_chain(self, symbols):
         """fft_engine=kiss: the whole back end in exact int16 arithmetic,
         bit-identical to the reference's KISS chain (per-stage rounding
-        and all), into packed int32 wire words [B, tf_samples]."""
+        and all), into packed int32 wire words [B, tf_samples].  With no
+        window overlap K4 writes the words, cyclic prefixes included (one
+        stage range); modulate_traced, whose taps dump every stage, and an
+        overlap take the transform's samples and the guard interval
+        apart."""
         p = self.p
+        ov = self.settings.ofdm_window_overlap
+        fused = not ov and self._tap is None
         with record_function("kiss_ifft"):
-            bins = ofdm.to_bins_slices(self._q14(symbols), p.nb_carriers,
-                                       p.spacing)
-            td = kiss_fixed.kiss_fft_fixed(*bins, inverse=True)
-            self._t("kiss_ifft", td)
+            out = kiss_kernel.kiss_ifft(symbols, self._kiss_table,
+                                        wire=fused)
+            if fused:
+                return out
+            self._t("kiss_ifft", out)
         with record_function("guard_interval"):
-            ov = self.settings.ofdm_window_overlap
             if ov:
                 iq = kiss_fixed.guard_interval_windowed_fixed(
-                    td, p.null_size, p.sym_size, ov)
+                    out, p.null_size, p.sym_size, ov)
             else:
-                iq = ofdm.guard_interval_unwindowed(td, p.null_size,
+                iq = ofdm.guard_interval_unwindowed(out, p.null_size,
                                                     p.sym_size)
             self._t("guard_interval", iq)
         with record_function("format_convert"):
-            # (im << 16) | (re & 0xFFFF), written without a shift of a
-            # negative value: im * 2**16 stays within int32 for every int16
-            # im
-            return iq[1] * 65536 + (iq[0] & 0xFFFF)
+            return kiss_fixed.pack_words(*iq)
 
     def _modulate_impl(self, fic_bytes, subch_bytes, state,
                        constant_gain: torch.Tensor, var_k: torch.Tensor,

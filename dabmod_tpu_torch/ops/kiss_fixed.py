@@ -63,6 +63,17 @@ def _build_perm(n: int, factors: list[tuple[int, int]]) -> np.ndarray:
     return perm
 
 
+def twiddles(n: int, inverse: bool) -> np.ndarray:
+    """kiss_fft_alloc's twiddles, int32 [n, 2]: floor(.5 + 32767 * cos)
+    and floor(.5 + 32767 * sin) of the phase 2*pi*i/n (inverse) or
+    -2*pi*i/n (forward)."""
+    phase = 2.0 * np.pi * np.arange(n, dtype=np.float64) / n
+    if not inverse:
+        phase = -phase
+    return np.floor(0.5 + 32767.0 * np.stack(
+        [np.cos(phase), np.sin(phase)], axis=-1)).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=32)
 def _plan(n: int, inverse: bool, device: torch.device):
     """(perm, stages) on `device`: the input permutation (int64) and, per
@@ -76,12 +87,7 @@ def _plan(n: int, inverse: bool, device: torch.device):
             raise NotImplementedError(
                 f"kiss emulation implements radix 2/4 only (n={n})")
     perm = _build_perm(n, factors)
-    i = np.arange(n, dtype=np.float64)
-    phase = -2.0 * np.pi * i / n
-    if inverse:
-        phase = -phase
-    tw_r = np.floor(0.5 + 32767.0 * np.cos(phase)).astype(np.int32)
-    tw_i = np.floor(0.5 + 32767.0 * np.sin(phase)).astype(np.int32)
+    tw_r, tw_i = twiddles(n, inverse).T
 
     def t(a):
         return torch.as_tensor(a, device=device)
@@ -161,10 +167,16 @@ def _bfly4(x, tw, inverse: bool):
 def kiss_fft_fixed(re, im, inverse: bool = True):
     """KISS FIXED_POINT=16 transform of int32 planes [..., n] holding
     int16 values; returns int32 planes holding the exact int16 results."""
-    n = re.shape[-1]
-    perm, stages = _plan(n, inverse, re.device)
-    xr = re.to(torch.int32).index_select(-1, perm)
-    xi = im.to(torch.int32).index_select(-1, perm)
+    perm, stages = _plan(re.shape[-1], inverse, re.device)
+    return butterflies(re.to(torch.int32).index_select(-1, perm),
+                       im.to(torch.int32).index_select(-1, perm), stages,
+                       inverse)
+
+
+def butterflies(xr, xi, stages, inverse: bool = True):
+    """kiss_fft_fixed's butterfly stages (_plan's `stages`, deepest first)
+    on int32 planes [..., n] already in the input permutation's order."""
+    n = xr.shape[-1]
     lead = xr.shape[:-1]
     for p, m, tw in stages:
         nb = n // (p * m)
@@ -240,3 +252,10 @@ def guard_interval_windowed_fixed(symbols, null_size: int, sym_size: int,
             [null[:, sp - npre:], null[:, :sp - ov], null_tail], dim=1)
         return torch.cat([null_block, blocks.reshape(B, -1)], dim=1)
     return one(symbols[0]), one(symbols[1])
+
+
+def pack_words(re, im):
+    """int16 (re, im) in int32 planes -> packed s16 wire words
+    (im << 16) | (re & 0xFFFF), written without a shift of a negative
+    value: im * 2**16 stays within int32 for every int16 im."""
+    return im * 65536 + (re & 0xFFFF)

@@ -33,7 +33,8 @@ from dabmod_tpu_torch import tables
 from dabmod_tpu_torch.config import ModSettings
 from dabmod_tpu_torch.eti import parse_eti_frames, synth_eti_batch
 from dabmod_tpu_torch.models import Modulator, make_default_layout
-from dabmod_tpu_torch.ops import filters, ofdm, ofdm_kernel, resampler_kernel
+from dabmod_tpu_torch.ops import (filters, kiss_kernel, ofdm, ofdm_kernel,
+                                  resampler_kernel)
 from dabmod_tpu_torch.ops.filters import PolyphasePlan
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -660,8 +661,8 @@ def test_int32_shift_and_mask_on_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,ov", [(1, 0), (1, 90), (2, 90), (3, 63),
-                                     (4, 0)])
+@pytest.mark.parametrize("mode,ov", [(1, 0), (1, 10), (1, 90), (2, 90),
+                                     (3, 63), (4, 0)])
 def test_kiss_on_card_equals_cpu(card, mode, ov):
     """fft_engine=kiss on the card, bit for bit the CPU's (two batches,
     the state carried), at every TM's transform size."""
@@ -681,6 +682,91 @@ def test_kiss_on_card_equals_cpu(card, mode, ov):
         outs[str(dev)] = res
     for g, c in zip(outs["cuda"], outs["cpu"]):
         assert g.dtype == torch.int32 and torch.equal(g, c)
+
+
+def _kiss_table(mode, device):
+    p = tables.mode_params(mode)
+    return p, kiss_kernel.make_table(_mode_table(mode, device), p.null_size,
+                                     p.sym_size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", [True, False])
+@pytest.mark.parametrize("mode,tfs", [(1, 1), (1, 24), (2, 3), (3, 5),
+                                      (4, 2)])
+def test_kiss_kernel_equals_plain_on_card(card, mode, tfs, wire):
+    """K4 against its plain version on the CPU, bit for bit, on carrier
+    planes past full scale (the butterflies' int16 stores wrap); one launch
+    counted."""
+    p, table = _kiss_table(mode, card)
+    x = tuple(1.5 * v for v in _planes(
+        card, 100 * mode + tfs, (tfs, p.nb_symbols + 1, p.nb_carriers)))
+    before = kiss_kernel.kiss_ifft.launches
+    got = kiss_kernel.kiss_ifft(x, table, wire=wire)
+    torch.cuda.synchronize()
+    assert kiss_kernel.kiss_ifft.launches == before + 1
+    want = kiss_kernel.kiss_ifft_plain(tuple(v.cpu() for v in x),
+                                       _kiss_table(mode, "cpu")[1], wire)
+    g, w = _leaves(got), _leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_kiss_kernel_launch_shape_on_card(card):
+    """Each K4 instance reports the threads and symbols a block that
+    kiss_kernel assumes, and fits on an SM."""
+    for n in (256, 512, 1024, 2048):
+        shape = kiss_kernel.launch_shape(n)
+        assert shape["threads_per_block"] == kiss_kernel.THREADS_PER_BLOCK
+        assert shape["symbols_per_block"] == kiss_kernel.symbols_per_block(n)
+        assert shape["resident_blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tii", [None, (5, 31)], ids=["no_tii", "tii"])
+@pytest.mark.parametrize("ov", [0, 10, 90])
+def test_kiss_captured_step_matches_reference_on_card(card, ov, tii):
+    """K4 in the captured step, TM I, the 17-sub-channel ensemble of
+    benchmark/configs/r17_kiss_s16.json, batches of 3, 1 and 1 TFs (two
+    graphs), the state carried: bit for bit benchmark/reference/kiss.py
+    (upstream's fixed-point chain in int64, rendered on the card); K4
+    counted at each graph's warm-up and capture, one launch a graph."""
+    import json
+    import sys
+    bench = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import streams
+    from reference import kiss
+    with open(os.path.join(bench, "configs", "r17_kiss_s16.json")) as f:
+        ensemble = [tuple(e) for e in json.load(f)["ensemble"]]
+    frames = streams.make_frames(2**31 + 17 + ov, 4 * 5, ensemble)
+    kw = dict(tii_enable=True, tii_comb=tii[0], tii_pattern=tii[1]) \
+        if tii else {}
+    layout = parse_eti_frames(frames[:4]).layout
+    m = Modulator(layout, ModSettings(dab_mode=1, fft_engine="kiss",
+                                      ofdm_window_overlap=ov, **kw),
+                  device=card)
+    before = kiss_kernel.kiss_ifft.launches
+    st, outs = m.init_state(), []
+    for lo, hi in ((0, 3), (3, 4), (4, 5)):
+        out, st, _ = m.modulate_eti(parse_eti_frames(frames[4 * lo:4 * hi]),
+                                    st)
+        outs.append(out.cpu())
+    settings = {"mode": 1, "window": ov, "wire": "s16"}
+    if tii:
+        settings["tii"] = list(tii)
+    want = kiss.Chain(settings, card, "f64").render(frames, 0, keep=5)
+    got = torch.cat(outs).numpy().view(np.int16).reshape(want.shape)
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+    caps = m.compiled.graphs
+    assert sorted(caps) == [1, 3]
+    assert [caps[b].launches["kiss_ifft"] for b in (1, 3)] == [1, 1]
+    assert [caps[b].replays for b in (1, 3)] == [2, 1]
+    assert kiss_kernel.kiss_ifft.launches - before == 4
 
 
 @pytest.mark.cuda
@@ -1094,6 +1180,7 @@ def _graph_paths(tmp_path):
         "dpd_lut": ModSettings(dab_mode=1, output="uhd", **planes,
                                poly_coef_file=_lut_file(tmp_path)
                                ).normalise_for_output(),
+        "kiss_fused": ModSettings(dab_mode=1, fft_engine="kiss"),
         "kiss": ModSettings(dab_mode=1, fft_engine="kiss",
                             ofdm_window_overlap=90),
         "dexter": ModSettings(dab_mode=1, fft_engine="dexter",
@@ -1134,7 +1221,7 @@ def _assert_same_bits(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["main", "main_s16", "cfr_8m192",
                                   "cfr30_3m072", "dpd_poly", "dpd_lut",
-                                  "kiss", "dexter"])
+                                  "kiss_fused", "kiss", "dexter"])
 def test_captured_step_equals_eager_on_card(card, tmp_path, path):
     """Three batches, the state carried: the replayed graph's output, stats
     and state equal to the bit the eager step's on the same card."""
@@ -1221,7 +1308,8 @@ def test_returned_output_unchanged_after_next_call_on_card(card):
 # the kernels' names on the card: the counted wrapper of each
 KERNEL_NAMES = {"ofdm_ifft_kernel": "ofdm_backend",
                 "ofdm_cfr_kernel": "ofdm_cfr_backend",
-                "resample_poly": "resample"}
+                "resample_poly": "resample",
+                "kiss_ifft_kernel": "kiss_ifft"}
 
 
 def _kernel_of(event_name: str) -> str:
@@ -1280,7 +1368,7 @@ def test_launch_counts_equal_replays_on_card(card):
     traced = _traced_launches(run)
     (cap,) = m.compiled.graphs.values()
     assert cap.launches == {"ofdm_backend": 0, "ofdm_cfr_backend": 1,
-                            "resample": 1}
+                            "resample": 1, "kiss_ifft": 0}
     assert [k.launches for k in kernels] == [0, 2, 2]
     assert cap.replays == 4
     assert traced == {k: (1 + cap.replays) * n

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the kernels of one checkout on one CUDA card: K1 (ofdm_backend,
-csrc/ofdm_ifft.cu), K2 (ofdm_cfr_backend, csrc/ofdm_cfr.cu) and K3
+csrc/ofdm_ifft.cu), K2 (ofdm_cfr_backend, csrc/ofdm_cfr.cu), K4 (kiss_ifft,
+csrc/kiss_ifft.cu, wire words and planes, beside its plain version) and K3
 (resample, csrc/resample_poly.cu) at 8.192 and 3.072 MS/s, through
 chip_smoke.py's phase-5 helpers: phase 2's TM I input (24 TFs) and K2
 clip, K3 on a stream of 24 TFs from its own seed, the same input sets
@@ -73,6 +74,7 @@ def main():
         cs.check(err <= tol, f"{name}: err {err} > {tol}")
         t = cs.kernel_times(torch, {"": (fns[""], sets)}, cpm)
         rec[name] = {"max_abs_err": err, **t}
+    time_kiss(torch, cs, rec, planes, table, sets, cpm)
     rng = np.random.default_rng(cs.SEED + 5)
     n = cs.BATCH_TF * p.tf_samples
     for rate in cs.K3_TIMED_RATES:
@@ -93,6 +95,47 @@ def main():
             torch, {"": cs.resample_calls(torch, x, carry, table)[""]}, cpm)
         rec[f"resample_poly_{rate}"] = {"max_abs_err": err, **t}
     print(json.dumps(rec), flush=True)
+
+
+def time_kiss(torch, cs, rec, planes, table, sets, cpm):
+    """K4 (kiss_ifft, csrc/kiss_ifft.cu) and its plain version on the same
+    TM I input, the wire words and the planes, each bit for bit against
+    the plain version; nothing where the checkout has no K4."""
+    from dabmod_tpu_torch import tables
+    try:
+        from dabmod_tpu_torch.ops import kiss_kernel as K4
+    except ImportError:
+        return
+    p = tables.mode_params(1)
+    kt = K4.make_table(table, p.null_size, p.sym_size)
+    for wire in (True, False):
+        name = "kiss_ifft_" + ("wire" if wire else "planes")
+        got = K4.kiss_ifft(planes, kt, wire)
+        want = K4.kiss_ifft_plain(planes, kt, wire)
+        torch.cuda.synchronize()
+        g, w = (got, want) if wire else (got[0], want[0])
+        cs.check(torch.equal(g, w) and (wire or torch.equal(got[1], want[1])),
+                 f"{name}: differs from the plain version")
+        rec[name] = {"bit_exact": True, **cs.kernel_times(torch, {
+            "": (lambda x, w=wire: K4.kiss_ifft(x, kt, w), sets)}, cpm),
+            "plain_ms": plain_ms(torch, lambda w=wire: K4.kiss_ifft_plain(
+                planes, kt, w))}
+
+
+def plain_ms(torch, fn, n=5) -> float:
+    """Device ms a call of a plain version that issues its int32 ops one
+    by one (some 1,400 launches a call: no spin outlasts their issue), from
+    CUDA events around n calls after one warm call: paced by the host."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / n
 
 
 if __name__ == "__main__":
