@@ -251,7 +251,9 @@ def expected_stages(m) -> list:
     """The stage ranges modulator m's step opens, in the order it opens
     them (dabmod_tpu's scopes in its order)."""
     s = m.settings
-    st = ["fec", "qpsk_map", "diff_mod", "carriers", "tii_null"]
+    # on the card K5 runs the front end under the first stage's range
+    st = (["fec"] if m.device.type == "cuda"
+          else ["fec", "qpsk_map", "diff_mod", "carriers", "tii_null"])
     if m._dexter:
         return st + ["dexter_quantise"]
     if m._kiss:
@@ -354,7 +356,8 @@ def attribute_stages(torch, events, stages, n_steps) -> dict:
 
 # the stage each counted kernel may run under
 KERNEL_STAGE = {"ofdm_ifft": "ofdm_ifft", "ofdm_cfr": "ofdm_ifft",
-                "resample_poly": "resampler", "kiss_ifft": "kiss_ifft"}
+                "resample_poly": "resampler", "kiss_ifft": "kiss_ifft",
+                "frontend": "fec"}
 
 
 def stage_problems(rec, other_max=0.05, busy_rel=0.02) -> list:
@@ -1412,7 +1415,9 @@ def collectives_rank(mesh, spec: dict) -> list:
         _, frames = sm._split(fic.shape[0])
         fic_l, subs_l = fic[frames], tuple(x[frames] for x in subs)
         st0 = m.init_state()
-        calls = [0]
+        # eager steps, and those of them that are severed: the unsharded
+        # step, whose front end is K5 on the card
+        calls, severed_calls = [0], [0]
 
         def sharded_eager():
             calls[0] += 1
@@ -1422,6 +1427,7 @@ def collectives_rank(mesh, spec: dict) -> list:
 
         def severed_eager():
             calls[0] += 1
+            severed_calls[0] += 1
             with torch.no_grad():
                 m._modulate_impl(fic_l, subs_l, st0, *m._gain_args(),
                                  m._apply_swaps())
@@ -1477,6 +1483,7 @@ def collectives_rank(mesh, spec: dict) -> list:
             graphs += _graphs(severed)
         rec.update(launches={k: f.launches for k, f in kernels.items()},
                    graphs=graphs, eager_calls=calls[0],
+                   severed_calls=severed_calls[0],
                    traced_steps=spec["traced"])
         out.append(rec)
         del sm, m

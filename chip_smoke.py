@@ -42,7 +42,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      with the carry against one call.
 3. The front end against the reference goldens in tests/golden/
    (e2e_symbols: 2 TFs, 2 sub-channels; e2e_real_symbols: 4 TFs, the
-   17-sub-channel ensemble).
+   17-sub-channel ensemble); K5, the front end in one kernel, bit for bit
+   against its plain version on the CPU (planes and new history) in TM
+   I-IV on the 17-sub-channel ensemble, with TII in TM I and II and CIC in
+   TM I, three chained batches of 24 TFs (TM I) and of 1 TF.
 4. Five paths at full width, TM I, batch_tf=24 (24 x 196,608 samples a
    step in), two consecutive batches carrying the state, against the port
    run on the CPU on the same ETI:
@@ -88,7 +91,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    a torch.profiler breakdown, in each of its formats; the wall of the
    first step (warm-up, capture, replay), the device memory the graph
    holds after it (the caching allocator's, unused blocks released before
-   and after) and the time to clone a step's outputs; each kernel (20 back-to-back calls a run, cycling
+   and after) and the time to clone a step's outputs; the captured step
+   again with the front end as the op chain in place of K5 (its output
+   equal to the bit), the step before K5; each kernel (20 back-to-back calls a run, cycling
    through input sets larger than L2 together, and again on one input
    set; the card spins in torch.cuda._sleep while the host issues the
    calls, so the events see device time only, and the host's issue time
@@ -101,7 +106,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    followed by the unwindowed guard interval and the packing as torch ops
    (what its words spare a step at overlap 0); the kiss step at overlap
    0 ("realistic17_kiss_ov0", K4 writing the words) beside the path's
-   step; and the eager stages the
+   step; K5 at TM I, 24 TFs, the 17 sub-channels, beside its plain
+   version (the op chain) and its bytes bound; and the eager stages the
    DPD path adds (windowed guard interval, FIR, poly and LUT DPD), each
    alone at that path's shapes, beside its bytes bound.
 6. Variant runs, each on the card against the CPU at 2 TFs a batch, two
@@ -532,6 +538,8 @@ def phase_card_and_build(torch):
             check_resampler_instances(ptxas[name])
         if name == "kiss_ifft":
             check_kiss_instances(ptxas[name])
+        if name == "frontend":
+            check_frontend_instance(ptxas[name])
         log(f"    {name}: {json.dumps(ptxas[name])}")
     from dabmod_tpu_torch import native
     t0 = time.perf_counter()
@@ -564,6 +572,23 @@ def check_kiss_instances(ptxas):
               f"kiss_ifft N={n}: the source reports {rec}, kiss_kernel "
               f"assumes {K4.THREADS_PER_BLOCK} threads and "
               f"{K4.symbols_per_block(n)} symbols a block")
+
+
+def check_frontend_instance(ptxas):
+    """K5: no spills, the threads and carriers a block that
+    frontend_kernel assumes, at least one block resident an SM."""
+    from dabmod_tpu_torch.ops import frontend_kernel as K5
+    rec = ptxas.get("")
+    check(rec is not None, "frontend: ptxas reports no kernel")
+    check(rec["spill_stores"] == 0, f"frontend: {rec['spill_stores']} "
+          f"bytes of spill stores")
+    rec.update(K5.launch_shape())
+    check(rec["threads_per_block"] == K5.THREADS_PER_BLOCK
+          and rec["carriers_per_block"] == K5.CARRIERS_PER_BLOCK
+          and rec["resident_blocks_per_sm"] >= 1,
+          f"frontend: the source reports {rec}, frontend_kernel assumes "
+          f"{K5.THREADS_PER_BLOCK} threads and {K5.CARRIERS_PER_BLOCK} "
+          f"carriers a block")
 
 
 def check_resampler_instances(ptxas):
@@ -833,6 +858,7 @@ def phase_resampler(torch, rng):
 
 
 def phase_frontend(torch):
+    """Phase 3; returns check_frontend_kernel's inputs for phase 5."""
     from dabmod_tpu_torch.config import ModSettings
     from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
     from dabmod_tpu_torch.models import Modulator, make_default_layout
@@ -867,6 +893,83 @@ def phase_frontend(torch):
 
     run(BENCH_SPECS, "e2e_", 8, 2, ("e2e_sub0_in", "e2e_sub1_in"))
     run(REALISTIC_MUX_SPECS, "e2e_real_", 16, 4)
+    return check_frontend_kernel(torch)
+
+
+# K5's cases in phase 3: (TM, settings)
+FRONTEND_CASES = ((1, dict(tii_enable=True, tii_comb=5, tii_pattern=31,
+                           cic_eq_clock_rate=32_768_000)),
+                  (1, {}), (2, dict(tii_enable=True, tii_comb=3,
+                                    tii_pattern=12)), (3, {}), (4, {}))
+
+
+def frontend_batches(torch, mode, tfs, n, seed):
+    """n consecutive batches of `tfs` TFs of the 17-sub-channel ensemble,
+    (fic, sub-channels) on the card."""
+    from dabmod_tpu_torch import tables
+    from dabmod_tpu_torch.eti import (REALISTIC_MUX_SPECS, parse_eti_frames,
+                                      synth_eti_batch)
+    frames = tfs * tables.mode_params(mode).cif_count
+    raw = synth_eti_batch(n * frames, mode=mode,
+                          subch_specs=REALISTIC_MUX_SPECS, seed=seed)
+    out = []
+    for i in range(n):
+        b = parse_eti_frames(raw[frames * i:frames * (i + 1)])
+        out.append((torch.as_tensor(b.fic, device="cuda"),
+                    tuple(torch.as_tensor(x, device="cuda")
+                          for x in b.subchannels)))
+    return out
+
+
+def check_frontend_kernel(torch):
+    """K5 against its plain version on the CPU, bit for bit (the symbol
+    planes and the new history), FRONTEND_CASES on the 17-sub-channel
+    ensemble, three chained batches of 24 TFs (TM I) or 4, and of 1 TF,
+    the history and TF index carried; one launch counted a call.  Returns
+    phase 5's inputs: the TM I modulator and its batches of 24 TFs."""
+    from torch.utils._pytree import tree_leaves
+    from dabmod_tpu_torch.config import ModSettings
+    from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
+    from dabmod_tpu_torch.models import Modulator, make_default_layout
+    from dabmod_tpu_torch.ops import frontend_kernel as K5
+    out = None
+    for mode, kw in FRONTEND_CASES:
+        mods = {dev: Modulator(make_default_layout(mode, REALISTIC_MUX_SPECS),
+                               ModSettings(dab_mode=mode, **kw), device=dev)
+                for dev in ("cuda", "cpu")}
+        for tfs in ((BATCH_TF if mode == 1 else 4), 1):
+            batches = frontend_batches(torch, mode, tfs, 3, SEED + mode)
+            hist = {dev: m.init_state()["ti_history"]
+                    for dev, m in mods.items()}
+            tf_index = 1
+            for fic, subs in batches:
+                res = {}
+                for dev, m in mods.items():
+                    before = K5.frontend.launches
+                    res[dev] = K5.frontend(
+                        fic.to(dev), tuple(x.to(dev) for x in subs),
+                        hist[dev], torch.tensor(tf_index, dtype=torch.int32,
+                                                device=dev), m._frontend)
+                    torch.cuda.synchronize()
+                    check(K5.frontend.launches - before
+                          == (dev == "cuda"), f"[3] frontend TM {mode}: "
+                          f"{K5.frontend.launches - before} launches counted")
+                    hist[dev] = res[dev][1]
+                g = [x.cpu().numpy() for x in tree_leaves(res["cuda"])]
+                w = [x.numpy() for x in tree_leaves(res["cpu"])]
+                check(len(g) == len(w) and all(
+                    a.dtype == b.dtype and a.shape == b.shape
+                    and a.tobytes() == b.tobytes() for a, b in zip(g, w)),
+                    f"[3] frontend TM {mode} {kw} {tfs} TF(s): the kernel's "
+                    f"planes or history differ from the plain version's")
+                tf_index += tfs
+            log(f"[3] frontend (K5) TM {mode} {sorted(kw) or 'plain'}, "
+                f"{tfs} TF(s) x 3 chained batches, 17 sub-channels: planes "
+                f"{tuple(res['cuda'][0][0].shape)} and history equal to the "
+                f"plain version's, bit for bit")
+            if mode == 1 and not kw and tfs == BATCH_TF:
+                out = (mods["cuda"], batches)
+    return out
 
 
 def _settings(fmt, **extra):
@@ -911,11 +1014,13 @@ def _to_host(out):
 
 
 def _kernels():
-    from dabmod_tpu_torch.ops import kiss_kernel, ofdm_kernel, resampler_kernel
+    from dabmod_tpu_torch.ops import (frontend_kernel, kiss_kernel,
+                                      ofdm_kernel, resampler_kernel)
     return {"ofdm_ifft": ofdm_kernel.ofdm_backend,
             "ofdm_cfr": ofdm_kernel.ofdm_cfr_backend,
             "resample_poly": resampler_kernel.resample,
-            "kiss_ifft": kiss_kernel.kiss_ifft}
+            "kiss_ifft": kiss_kernel.kiss_ifft,
+            "frontend": frontend_kernel.frontend}
 
 
 def _bits(tree) -> list:
@@ -959,7 +1064,8 @@ def check_captured(tag, captured, eager):
 KERNEL_SYMBOLS = {"ofdm_ifft_kernel": "ofdm_ifft",
                   "ofdm_cfr_kernel": "ofdm_cfr",
                   "resample_poly": "resample_poly",
-                  "kiss_ifft_kernel": "kiss_ifft"}
+                  "kiss_ifft_kernel": "kiss_ifft",
+                  "frontend_kernel": "frontend"}
 
 
 def _kernel_of(event_name: str) -> str:
@@ -1033,18 +1139,19 @@ def _paths():
     from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
     r17 = (("realistic17", REALISTIC_MUX_SPECS),)
     return {
-        "main": ((*r17, ("bench2", BENCH_SPECS)), {}, ("ofdm_ifft",),
-                 ("f32", "s16")),
+        "main": ((*r17, ("bench2", BENCH_SPECS)), {},
+                 ("frontend", "ofdm_ifft"), ("f32", "s16")),
         "realistic17_cfr_8m192": (r17, CFR_8M192,
-                                  ("ofdm_cfr", "resample_poly"),
+                                  ("frontend", "ofdm_cfr", "resample_poly"),
                                   ("f32", "s16")),
         "realistic17_cfr30_3m072": (r17, CFR30_3M072,
-                                    ("ofdm_cfr", "resample_poly"),
-                                    ("f32", "s16")),
+                                    ("frontend", "ofdm_cfr",
+                                     "resample_poly"), ("f32", "s16")),
         "realistic17_dpd_8m192": (
             r17, dict(DPD_8M192, poly_coef_file=dpd_files()["poly"]),
-            ("ofdm_cfr", "resample_poly"), ("uhd",)),
-        "realistic17_kiss": (r17, KISS_OV10, ("kiss_ifft",), ("s16",)),
+            ("frontend", "ofdm_cfr", "resample_poly"), ("uhd",)),
+        "realistic17_kiss": (r17, KISS_OV10, ("frontend", "kiss_ifft"),
+                             ("s16",)),
     }
 
 
@@ -1298,14 +1405,33 @@ def _device_memory(torch) -> tuple:
     return torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
 
 
+def op_chain_modulator(*args, **kw):
+    """A Modulator whose step runs the front end as the op chain
+    (frontend_kernel.frontend_plain) on the card, as before K5: the
+    captured step of the same settings without K5, for phase 5's
+    comparison."""
+    from dabmod_tpu_torch.models import Modulator
+    from dabmod_tpu_torch.ops import fec, frontend_kernel
+
+    class OpChain(Modulator):
+        def _ofdm_symbols_impl(self, fic, subch, ti_history, tf_index,
+                               time_interleave=fec.time_interleave_all):
+            return frontend_kernel.frontend_plain(
+                fic, subch, ti_history, tf_index, self._frontend,
+                time_interleave)
+    return OpChain(*args, **kw)
+
+
 def time_path(torch, path, specs, extra, fmts):
     """One path on the 17-sub-channel ensemble, in each of its formats,
-    timed both ways in one process: the eager step
-    (Modulator._modulate_impl, keys "eager_<fmt>_...") and the captured
+    timed three ways in one process: the eager step
+    (Modulator._modulate_impl, keys "eager_<fmt>_..."), the captured
     step (Modulator.modulate, the graph's replay with its outputs cloned,
-    keys "<fmt>_..."); each: step time with its quartiles, the host's time
-    to issue a step in the same runs, samples/s at the output rate and
-    the profile.  With the graph's record ("<fmt>_graph"): the wall time
+    keys "<fmt>_...") and the captured step with the front end as the op
+    chain instead of K5 (op_chain_modulator, keys "opchain_<fmt>_...",
+    its output equal to the bit); each: step time with its quartiles, the
+    host's time to issue a step in the same runs, samples/s at the output
+    rate and the profile.  With the graph's record ("<fmt>_graph"): the wall time
     of the first step (warm-up, capture, replay), the device memory the
     graph holds after it, the launches a replay runs, and the time to clone
     a step's outputs."""
@@ -1331,6 +1457,12 @@ def time_path(torch, path, specs, extra, fmts):
 
         def step():
             _, state[0], _ = m.modulate(fic, subs, state[0])
+        chain = op_chain_modulator(make_default_layout(1, specs),
+                                   _settings(fmt, **extra), device="cuda")
+        chain_state = [chain.init_state()]
+
+        def chain_step():
+            _, chain_state[0], _ = chain.modulate(fic, subs, chain_state[0])
         # the first step of the batch size (the eager warm-up, the
         # capture, a replay and the clones) on the host's clock, and the
         # device memory the caching allocator holds after it beyond what it
@@ -1343,7 +1475,13 @@ def time_path(torch, path, specs, extra, fmts):
         first_s = time.perf_counter() - t0
         r1, a1 = _device_memory(torch)
         n_out = BATCH_TF * m.tf_samples_out
-        for key, fn in (("eager_", eager), ("", step)):
+        check(_same_bits(_bits(m.modulate(fic, subs, m.init_state())),
+                         _bits(chain.modulate(fic, subs,
+                                              chain.init_state()))),
+              f"[5] {path}/{fmt}: the captured step with K5 differs from "
+              f"the one with the front end's op chain")
+        for key, fn in (("eager_", eager), ("", step),
+                        ("opchain_", chain_step)):
             # the host's time to issue a step comes from the same runs:
             # equal to the step time when dispatch, not the card, sets the
             # pace
@@ -1371,6 +1509,8 @@ def time_path(torch, path, specs, extra, fmts):
         rec[f"realtime_x_{fmt}"] = rec[f"{fmt}_samples_per_s"] / rate
         rec[f"eager_realtime_x_{fmt}"] = (rec[f"eager_{fmt}_samples_per_s"]
                                           / rate)
+        rec[f"opchain_over_k5_{fmt}"] = (rec[f"opchain_{fmt}_ms_per_step"]
+                                         / rec[f"{fmt}_ms_per_step"])
     rec = {"path": path, "ensemble": "realistic17", "mode": 1,
            "batch_tf": BATCH_TF, "output_rate": rate,
            "samples_per_step_out": n_out,
@@ -1440,6 +1580,59 @@ def time_ofdm_ifft(torch, cpm, sets, table, calls, err, launches, ptxas):
         f"{t['library_ms']:.4f} ms; one input set reused: "
         f"{t['ms_warm_l2']:.4f} / {t['plain_ms_warm_l2']:.4f} / "
         f"{t['library_ms_warm_l2']:.4f} ms)")
+    return k
+
+
+def time_frontend(torch, cpm, inputs, launches, ptxas):
+    """K5 at the main path's shapes (TM I, 24 TFs, the 17-sub-channel
+    ensemble), cycling through phase 3's batches; its plain version (the
+    op chain, some 410 torch ops, host-paced) on the same inputs.  The
+    bound counts the least bytes: the ETI payload and the history read,
+    the planes and the new history written, the tables once."""
+    from torch.utils._pytree import tree_leaves
+    from dabmod_tpu_torch.ops import frontend_kernel as K5
+    m, batches = inputs
+    table = m._frontend
+    hist = m.init_state()["ti_history"]
+    tf0 = torch.zeros((), dtype=torch.int32, device="cuda")
+    sets = [(fic, subs) for fic, subs in batches]
+
+    def k5(x):
+        return K5.frontend(*x, hist, tf0, table)
+
+    def plain(x):
+        return K5.frontend_plain(*x, hist, tf0, table)
+    got, want = k5(sets[0]), plain(sets[0])
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                 tree_leaves(want))),
+          "frontend: the kernel differs from its plain version on the card")
+    t = kernel_times(torch, {"": (k5, sets)}, cpm)
+    plain_runs, _ = time_runs(torch, lambda: plain(sets[0]), n=5, warm=1)
+    payload = sum(x.numel() for x in tree_leaves(sets[0]))
+    hist_bytes = sum(h.numel() for h in hist)
+    planes = sum(x.numel() * 4 for x in got[0])
+    tables_bytes = sum(x.numel() * x.element_size() for x in (
+        table.prbs, table.keep, table.cif_src, table.cif_filler,
+        table.ref_q))
+    nbytes = payload + 2 * hist_bytes + planes + tables_bytes
+    B, S, C = got[0][0].shape
+    k = {"name": "frontend", "route": "cuda",
+         "source": "dabmod_tpu_torch/ops/csrc/frontend.cu",
+         "replaces": "none: the front end's op chain (dabmod_tpu/ops/fec.py, "
+                     "ops/ofdm.py are XLA ops, no Pallas kernel)",
+         "launches": launches, "max_abs_err": 0,
+         "ms": t["ms"], "plain_ms": statistics.median(plain_runs),
+         **bound(nbytes, 0.0),
+         "library_ms": None,
+         "library_call": "none: no PyTorch call does the FEC chain",
+         **{key: v for key, v in t.items()
+            if key.endswith(("_warm_l2", "host_issue_ms", "host_paced"))},
+         "l2_sets": len(sets), "shape": [B, S, C],
+         "subchannels": len(hist), **ptxas[""]}
+    log(f"[5] frontend {B}x{S}x{C}, {len(hist)} sub-channels: "
+        f"{t['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms by bytes, "
+        f"{nbytes / 1e6:.2f} MB; plain {k['plain_ms']:.4f} ms, host-paced; "
+        f"one input set reused: {t['ms_warm_l2']:.4f} ms)")
     return k
 
 
@@ -1725,7 +1918,9 @@ def phase_times(torch, inputs, launches, ptxas):
                         ptxas["resample_poly"])
           for rate in K3_TIMED_RATES],
         time_kiss_ifft(torch, cpm, sets, *inputs["kiss"], total["kiss_ifft"],
-                       ptxas["kiss_ifft"])]
+                       ptxas["kiss_ifft"]),
+        time_frontend(torch, cpm, inputs["frontend"], total["frontend"],
+                      ptxas["frontend"])]
     return stages, kernels, steps
 
 
@@ -1840,10 +2035,10 @@ def check_lut_variant(torch, name, settings, outs):
 def check_variant(torch, name, mode, extra, fmt):
     settings = _settings(fmt, dab_mode=mode, **extra)
     outs, counts = drive_both(torch, mode, settings, tag=name)
-    # K1 at the warm-up before the capture and at the capture (on the
-    # card: the warm-up and two replays, drive_both's trace)
+    # K1 and K5 at the warm-up before the capture and at the capture (on
+    # the card: the warm-up and two replays, drive_both's trace)
     check(counts == {"ofdm_ifft": 2, "ofdm_cfr": 0, "resample_poly": 0,
-                     "kiss_ifft": 0},
+                     "kiss_ifft": 0, "frontend": 2},
           f"[6] {name}: kernel launches {counts}")
     if name == "lut_dpd":
         check_lut_variant(torch, name, settings, outs)
@@ -2137,12 +2332,14 @@ def _runtime_inis():
     kernels it must launch, the step of Modulator.modulate alone that
     phase 5 timed at the same settings)."""
     return {
-        "a_main_s16": ("", "", "s16", ("ofdm_ifft",), ("main", "s16")),
+        "a_main_s16": ("", "", "s16", ("frontend", "ofdm_ifft"),
+                       ("main", "s16")),
         "b_cfr_8m192_complexf": (
             "rate=8192000\n", "[cfr]\nenable=1\nclip=40.0\nerrorclip=3.0\n",
-            "complexf", ("ofdm_cfr", "resample_poly"),
+            "complexf", ("frontend", "ofdm_cfr", "resample_poly"),
             ("realistic17_cfr_8m192", "f32")),
-        "c_kiss_s16": ("fft_engine=kiss\n", "", "s16", ("kiss_ifft",),
+        "c_kiss_s16": ("fft_engine=kiss\n", "", "s16",
+                       ("frontend", "kiss_ifft"),
                        ("realistic17_kiss_ov0", "s16")),
     }
 
@@ -3784,24 +3981,28 @@ def _check_shard_run(tag, ref, ranks, fmt, used, world, kind="eager"):
                       f"unsharded step's")
     for r, rec in enumerate(ranks):
         eager = kind == "eager"
-        _check_rank_launches(f"{tag}: rank {r}", rec, used,
-                             SHARD_BATCHES if eager else 0,
-                             [] if eager else rec["graphs"].values())
+        steps = SHARD_BATCHES if eager else 0
+        _check_rank_launches(f"{tag}: rank {r}", rec, used, steps,
+                             [] if eager else rec["graphs"].values(),
+                             steps if world == 1 else 0)
     log(f"    {tag}: every rank's state equal to the bit; launches a rank "
         f"{ranks[0]['launches']}"
         + (f", on the card {ranks[0]['on_card']}"
            if ranks[0]["on_card"] is not None else "") + f" (world {world})")
 
 
-def _check_rank_launches(tag, rec, used, eager_steps, graphs):
+def _check_rank_launches(tag, rec, used, eager_steps, graphs, k5_steps):
     """One rank's launches on its main path: the wrappers count its kernels
-    once an eager step (`used` once each of eager_steps) and each graph's
+    once an eager step (`used` once each of eager_steps; K5 once each of
+    the k5_steps eager steps whose time interleaver is the unsharded one:
+    the sharded coupling runs the front end's op chain) and each graph's
     warm-up and capture (the graph's count, twice); the trace of the path
     (rec["on_card"], where traced) holds the eager steps' launches and
     each graph's at its warm-up and each replay.  Each kernel of `used`
     must have launched."""
     names = {f.__name__: k for k, f in _kernels().items()}
     want = {kn: eager_steps if kn in used else 0 for kn in rec["launches"]}
+    want["frontend"] = k5_steps
     on_card = dict(want)
     for g in graphs:
         for wrapper, n in g["launches"].items():
@@ -4112,7 +4313,8 @@ def _check_scaling(tag, rec, world_list, hosts=False):
         for r in row["ranks"]:
             rt = f"{t}: rank {r['rank']}"
             _check_rank_launches(rt, r, ("ofdm_ifft",), r["eager_calls"],
-                                 r["graphs"])
+                                 r["graphs"], r["eager_calls"]
+                                 if row["world"] == 1 else 0)
             check(len(r["graphs"]) == 1, f"{rt}: {len(r['graphs'])} graphs")
             want = _replay_launches(r["graphs"][0], r["traced_steps"])
             got = {k: r["traced"][k] for k in want}
@@ -4142,7 +4344,8 @@ def _check_collectives(tag, rec):
         for k in r["ranks"]:
             rt = f"{t}: rank {k['rank']}"
             _check_rank_launches(rt, dict(k, on_card=None), used,
-                                 k["eager_calls"], k["graphs"])
+                                 k["eager_calls"], k["graphs"],
+                                 k["severed_calls"])
             if "traced" in k:
                 check({c: v["collectives"] for c, v in
                        k["captured_exchanges"].items()}
@@ -4225,7 +4428,7 @@ def main():
     try:
         card, ptxas = phase_card_and_build(torch)
         inputs = phase_kernels(torch)
-        phase_frontend(torch)
+        inputs["frontend"] = phase_frontend(torch)
         launches = phase_paths(torch)
         stages, kernels, steps = phase_times(torch, inputs, launches, ptxas)
         variant_launches = phase_variants(torch)

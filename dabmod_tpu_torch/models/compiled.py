@@ -48,12 +48,13 @@ import weakref
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
-from ..ops import kiss_kernel, ofdm_kernel, resampler_kernel
+from ..ops import frontend_kernel, kiss_kernel, ofdm_kernel, resampler_kernel
 
 # the kernel wrappers that count their launches in a `launches` attribute
 # (looked up at each use, so a wrapper replaced at run time is the one read)
 COUNTED = ((ofdm_kernel, "ofdm_backend"), (ofdm_kernel, "ofdm_cfr_backend"),
-           (resampler_kernel, "resample"), (kiss_kernel, "kiss_ifft"))
+           (resampler_kernel, "resample"), (kiss_kernel, "kiss_ifft"),
+           (frontend_kernel, "frontend"))
 
 
 def launch_counts() -> dict:

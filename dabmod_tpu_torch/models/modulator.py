@@ -14,7 +14,8 @@ with a resampler its carry: a dict of tensors carried from one batch to
 the next.
 
 The chain, in dabmod_tpu's order: FEC and carrier mapping -> NULL symbol
-(with TII) -> CIC equalizer -> OFDM backend (the hand-written K1, or K2
+(with TII) -> CIC equalizer (on the card these three are the hand-written
+K5, ops/frontend_kernel.py) -> OFDM backend (the hand-written K1, or K2
 with one CFR iteration and its statistics) -> gain -> guard interval
 (plain or windowed) -> FIR -> resampler (K3, the plain polyphase form, or
 the frequency-domain form) -> DPD (polynomial or LUT) -> wire format (f32
@@ -49,8 +50,8 @@ from torch.profiler import record_function
 from .. import tables
 from ..config import ModSettings
 from ..eti import EnsembleLayout, EtiFrameBatch
-from ..ops import (fec, fft, kiss_fixed, kiss_kernel, ofdm, ofdm_kernel,
-                   resampler_kernel)
+from ..ops import (fec, fft, frontend_kernel, kiss_fixed, kiss_kernel, ofdm,
+                   ofdm_kernel, resampler_kernel)
 from ..ops.cplx import planes_from_complex, planes_to_pairs
 from ..ops.filters import (PLAIN_BLOCK, PolyphasePlan, ResamplerPlan,
                            cic_equalizer_taps, fir_filter, format_convert,
@@ -181,33 +182,6 @@ class Modulator:
         def t(a, dtype=None):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-        # --- FEC tables (bits are uint8, see ops.fec) ---
-        self._fic_prbs = t(tables.prbs_bits(p.fic_size_in), torch.uint8)
-        self._fic_nbits = p.fic_size_in * 8
-        plan = tables.puncture_plan(
-            tables.fic_rules(layout.mid), p.fic_size_in * 4 + 3)
-        assert plan[2] == p.fic_size_out, (plan[2], p.fic_size_out)
-        self._fic_punct = (t(fec.puncture_index(plan)), plan[1])
-
-        self._subch_prbs = []
-        self._subch_nbits = []
-        self._subch_punct = []
-        self._subch_ti_bits = []
-        self._subch_offsets = []
-        for sub in layout.subchannels:
-            n = sub.framesize
-            self._subch_prbs.append(t(tables.prbs_bits(n), torch.uint8))
-            self._subch_nbits.append(n * 8)
-            plan = tables.puncture_plan(
-                sub.rules(), n * 4 + 3, out_bytes_expected=sub.framesize_cu * 8)
-            self._subch_punct.append((t(fec.puncture_index(plan)), plan[1]))
-            # the width of the time-interleaver history
-            self._subch_ti_bits.append(int(
-                tables.time_interleave_masks(plan[2] * 8).shape[1]))
-            self._subch_offsets.append(sub.start_address * 64)
-
-        self._cif_filler = t(tables.prbs_bits(tables.CIF_BYTES), torch.uint8)
-
         # --- OFDM tables ---
         self._inv_perm = np.asarray(tables.freq_interleave_inverse(mode))
         ref_q = np.asarray(tables.phase_ref_eighths(mode))
@@ -223,7 +197,6 @@ class Modulator:
         carrier_of_pre = np.argsort(self._inv_perm)
         self._ref_q_pre = ref_q[carrier_of_pre]
         self._bin_src_pre = self._inv_perm[bm_src]
-        self._ref_q_pre_t = t(self._ref_q_pre, torch.int32)
         self._inv_perm_t = t(self._inv_perm, torch.int64)
         self._ofdm_table = ofdm_kernel.make_table(
             self._bin_src_pre, self._bin_valid, dev)
@@ -246,6 +219,15 @@ class Modulator:
             taps = cic_equalizer_taps(
                 p.nb_carriers, p.spacing * s.output_rate / 2_048_000.0, ratio)
             self._cic_taps = t(taps[carrier_of_pre])
+
+        # --- the front end's tables: FEC, the CIF layout, the phase
+        #     reference, TII and CIC (bits are uint8, see ops.fec) ---
+        self._frontend = frontend_kernel.make_table(
+            p, layout, self._ref_q_pre, self._tii_vec, self._cic_taps, dev)
+        # the width of each sub-channel's time-interleaver history, and its
+        # first bit in the CIF
+        self._subch_ti_bits = list(self._frontend.widths)
+        self._subch_offsets = list(self._frontend.offsets)
 
         # --- FIR ---
         self._fir_taps = None
@@ -451,48 +433,13 @@ class Modulator:
                                device=self.device)
 
     # ------------------------------------------------------------------
-    def _frontend_impl(self, fic_bytes, subch_bytes, ti_history,
-                       time_interleave=fec.time_interleave_all):
-        """Bit-domain FEC + carrier mapping: ETI payload bytes ->
-        differential-modulated carrier symbols [B, nb_symbols, C] in
-        interleaver-input order (see the deferred-FI note in __init__).
-        `time_interleave` takes every sub-channel's punctured rows and
-        histories at once (parallel.ShardedModulator passes its
-        minimal-halo form)."""
-        p = self.p
-        with record_function("fec"):
-            fic_bits = fec.unpack_bits(fic_bytes)
-            fic_out = fec.fec_path(fic_bits, self._fic_prbs,
-                                   self._fic_nbits, *self._fic_punct)
-            punctured = [
-                fec.fec_path(fec.unpack_bits(subch_bytes[i]),
-                             self._subch_prbs[i], self._subch_nbits[i],
-                             *self._subch_punct[i])
-                for i in range(len(self.layout.subchannels))]
-            cif_parts, new_hist = time_interleave(punctured, ti_history)
-            cif = fec.assemble_cif(cif_parts, self._subch_offsets,
-                                   self._cif_filler)
-            tf_bits = fec.block_partition(fic_out, cif, p.cif_count)
-            self._t("fec", tf_bits)
-
-        with record_function("qpsk_map"):
-            q = ofdm.qpsk_phase_indices(tf_bits, p.nb_carriers)
-            self._t("qpsk_map", q)
-        with record_function("diff_mod"):
-            phases = ofdm.diff_modulate(q, self._ref_q_pre_t)
-            self._t("diff_mod", phases)
-        with record_function("carriers"):
-            carriers = ofdm.phases_to_carriers(phases)
-            self._t("carriers", carriers)
-        return carriers, tuple(new_hist)
-
     def frontend(self, fic_bytes, subch_bytes, ti_history):
-        """The front end alone (for stage-level validation).  Returns the
-        symbols in CARRIER order (the external contract) and the new
-        time-interleaver history."""
-        syms, new_hist = self._frontend_impl(
+        """The front end alone (for stage-level validation): the data
+        symbols [B, nb_symbols, C] in CARRIER order (the external contract)
+        and the new time-interleaver history."""
+        syms, new_hist = frontend_kernel.data_symbols_plain(
             self._bytes(fic_bytes), tuple(self._bytes(x) for x in subch_bytes),
-            ti_history)
+            ti_history, self._frontend)
         return (tuple(ofdm.freq_interleave(x, self._inv_perm_t)
                       for x in syms), new_hist)
 
@@ -501,29 +448,21 @@ class Modulator:
         """The front end and the NULL symbol ahead of each TF, with TII in
         every other TF's NULL symbol and the CIC taps applied: the OFDM
         backend's input [B, S, C] (interleaver-input order) and the new
-        time-interleaver history."""
-        p = self.p
-        B = fic_bytes.shape[0] // p.cif_count
-        data_syms, new_hist = self._frontend_impl(
-            fic_bytes, subch_bytes, ti_history, time_interleave)  # [B, 76, C]
-        with record_function("tii_null"):
-            if self._tii_vec is not None:
-                # TII in the NULL symbol of the TFs with an even index
-                # (ref: src/TII.cpp:241-243)
-                tf_idx = tf_index + torch.arange(B, dtype=torch.int32,
-                                                 device=self.device)
-                insert = (tf_idx % 2 == 0).to(torch.float32)[:, None]
-                null_row = tuple(v[None, :] * insert for v in self._tii_vec)
-            else:
-                zero = torch.zeros((B, p.nb_carriers), dtype=torch.float32,
-                                   device=self.device)
-                null_row = (zero, zero)
-            symbols = tuple(torch.cat([n[:, None], d], dim=1)
-                            for n, d in zip(null_row, data_syms))
-            if self._cic_taps is not None:
-                symbols = tuple(x * self._cic_taps for x in symbols)
-            self._t("tii_null", symbols)
-        return symbols, new_hist
+        time-interleaver history.  `time_interleave` takes every
+        sub-channel's punctured rows and histories at once
+        (parallel.ShardedModulator passes its minimal-halo form).
+
+        On the card K5 (ops/frontend_kernel.py) computes it in one launch;
+        the op chain runs where K5 does not apply: under modulate_traced,
+        whose taps dump every stage, and with another time-interleaver
+        coupling than fec.time_interleave_all."""
+        if self._tap is None and time_interleave is fec.time_interleave_all:
+            return frontend_kernel.frontend(fic_bytes, subch_bytes,
+                                            ti_history, tf_index,
+                                            self._frontend)
+        return frontend_kernel.frontend_plain(
+            fic_bytes, subch_bytes, ti_history, tf_index, self._frontend,
+            time_interleave, self._t)
 
     def ofdm_symbols(self, fic_bytes, subch_bytes, ti_history, tf_index=0):
         """The OFDM backend's input for one batch (for stage-level

@@ -21,7 +21,7 @@ import threading
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC_DIR)), "_build")
-SOURCES = ("ofdm_ifft", "ofdm_cfr", "resample_poly", "kiss_ifft")
+SOURCES = ("ofdm_ifft", "ofdm_cfr", "resample_poly", "kiss_ifft", "frontend")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

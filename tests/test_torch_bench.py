@@ -51,8 +51,10 @@ def _source(*path) -> str:
 def test_stage_names_are_jax_scope_names():
     jax_names = set(re.findall(r'jax\.named_scope\("(\w+)"\)', _source(
         "dabmod_tpu", "models", "modulator.py")))
+    # the front end's ranges open in its module (ops/frontend_kernel.py)
     port_names = set(re.findall(r'record_function\("(\w+)"\)', _source(
-        "dabmod_tpu_torch", "models", "modulator.py")))
+        "dabmod_tpu_torch", "models", "modulator.py") + _source(
+        "dabmod_tpu_torch", "ops", "frontend_kernel.py")))
     assert len(jax_names) == 16
     assert port_names == jax_names == set(STAGES)
     assert len(STAGES) == len(set(STAGES))

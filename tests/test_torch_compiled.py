@@ -405,7 +405,7 @@ def test_launch_counts_follow_the_replays(tmp_path, stand_in, counted_k1):
         assert counted_k1.launches == 2
     (cap,) = m.compiled.graphs.values()
     assert cap.launches == {"ofdm_backend": 1, "ofdm_cfr_backend": 0,
-                            "resample": 0, "kiss_ifft": 0}
+                            "resample": 0, "kiss_ifft": 0, "frontend": 0}
     assert cap.replays == 4
 
 

@@ -724,6 +724,115 @@ def test_kiss_kernel_launch_shape_on_card(card):
         assert shape["resident_blocks_per_sm"] >= 1
 
 
+FRONTEND_CASES = {
+    "tm1": (1, {}), "tm1_tii_cic": (1, dict(
+        tii_enable=True, tii_comb=5, tii_pattern=31,
+        cic_eq_clock_rate=32_768_000)),
+    "tm2_tii": (2, dict(tii_enable=True, tii_comb=3, tii_pattern=12)),
+    "tm3": (3, {}), "tm4": (4, {})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tfs", [1, 24])
+@pytest.mark.parametrize("case", list(FRONTEND_CASES))
+def test_frontend_kernel_equals_plain_on_card(card, case, tfs):
+    """K5 against its plain version on the CPU, bit for bit (planes and
+    new history), on the 17 sub-channels of REALISTIC_MUX_SPECS over three
+    chained batches, the history and TF index carried; one launch a batch
+    counted."""
+    from dabmod_tpu_torch.eti import REALISTIC_MUX_SPECS
+    from dabmod_tpu_torch.ops import frontend_kernel
+    mode, kw = FRONTEND_CASES[case]
+    mods = {dev: Modulator(make_default_layout(mode, REALISTIC_MUX_SPECS),
+                           ModSettings(dab_mode=mode, **kw), device=dev)
+            for dev in (card, "cpu")}
+    frames = tfs * tables.mode_params(mode).cif_count
+    raw = synth_eti_batch(3 * frames, mode=mode,
+                          subch_specs=REALISTIC_MUX_SPECS, seed=50 + mode)
+    hist = {dev: m.init_state()["ti_history"] for dev, m in mods.items()}
+    tf_index = 3
+    for i in range(3):
+        b = parse_eti_frames(raw[frames * i:frames * (i + 1)])
+        out = {}
+        for dev, m in mods.items():
+            before = frontend_kernel.frontend.launches
+            out[dev] = frontend_kernel.frontend(
+                *m._batch(b.fic, b.subchannels), hist[dev],
+                torch.tensor(tf_index, dtype=torch.int32, device=dev),
+                m._frontend)
+            torch.cuda.synchronize()
+            assert frontend_kernel.frontend.launches - before == (
+                1 if dev == card else 0)
+            hist[dev] = out[dev][1]
+        g, w = _leaves(out[card]), _leaves(out["cpu"])
+        assert len(g) == len(w) == 2 + len(REALISTIC_MUX_SPECS)
+        for a, c in zip(g, w):
+            assert a.device.type == "cuda" and a.dtype == c.dtype
+            assert a.shape == c.shape and a.is_contiguous()
+            assert a.cpu().numpy().tobytes() == c.numpy().tobytes()
+        tf_index += tfs
+
+
+@pytest.mark.cuda
+def test_frontend_kernel_launch_shape_on_card(card):
+    """K5 reports the threads and carriers a block that frontend_kernel
+    assumes, and fits on an SM."""
+    from dabmod_tpu_torch.ops import frontend_kernel
+    shape = frontend_kernel.launch_shape()
+    assert shape["threads_per_block"] == frontend_kernel.THREADS_PER_BLOCK
+    assert shape["carriers_per_block"] == frontend_kernel.CARRIERS_PER_BLOCK
+    assert shape["resident_blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["main_s16", "dpd_poly", "kiss", "dexter"])
+def test_frontend_kernel_once_a_captured_step_on_card(card, tmp_path, path):
+    """The captured step of the s16, DPD, kiss and dexter chains holds one
+    K5 launch, counted at its warm-up and its capture; a trace of three
+    replays finds it once in each."""
+    from dabmod_tpu_torch.ops import frontend_kernel
+    m = Modulator(make_default_layout(1, BENCH_SPECS),
+                  _graph_paths(tmp_path)[path], device=card)
+    batches = _card_batches(card, 4)
+    before = frontend_kernel.frontend.launches
+    st = [m.modulate(*batches[0], m.init_state())[1]]
+
+    def run():
+        for batch in batches[1:]:
+            _, st[0], _ = m.modulate(*batch, st[0])
+    traced = _traced_launches(run)
+    (cap,) = m.compiled.graphs.values()
+    assert cap.launches["frontend"] == 1
+    assert frontend_kernel.frontend.launches - before == 2
+    assert traced["frontend"] == 3
+
+
+@pytest.mark.cuda
+def test_frontend_op_chain_where_k5_does_not_apply_on_card(card, tmp_path):
+    """modulate_traced and another time-interleaver coupling (a sharded
+    one) run the op chain on the card, no K5 launch, and give K5's
+    symbols to the bit."""
+    from dabmod_tpu_torch.ops import fec, frontend_kernel
+    m = Modulator(make_default_layout(1, BENCH_SPECS),
+                  ModSettings(dab_mode=1, output="file",
+                              file_output_format="s16"
+                              ).normalise_for_output(), device=card)
+    (batch,) = _card_batches(card, 1)
+    before = frontend_kernel.frontend.launches
+    m.modulate_traced(*batch, m.init_state(), str(tmp_path))
+    hist = m.init_state()["ti_history"]
+    tf0 = torch.zeros((), dtype=torch.int32, device=card)
+
+    def coupling(bits, histories):
+        return fec.time_interleave_all(bits, histories)
+    with torch.no_grad():
+        chain = m._ofdm_symbols_impl(*batch, hist, tf0, coupling)
+        assert frontend_kernel.frontend.launches == before
+        k5 = m._ofdm_symbols_impl(*batch, hist, tf0)
+    assert frontend_kernel.frontend.launches == before + 1
+    _assert_same_bits(k5, chain)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tii", [None, (5, 31)], ids=["no_tii", "tii"])
 @pytest.mark.parametrize("ov", [0, 10, 90])
@@ -1025,7 +1134,8 @@ def test_sharded_step_on_card_equals_unsharded(card, tmp_path):
     DPD) and s16 at 2.048 MS/s (K1), against the unsharded step on the
     card: f32 within 1e-4*max|ref|, s16 within 1 LSB with equal
     num_clipped, clip counts equal, the state equal on every rank; each
-    rank launches its kernels once a batch."""
+    rank launches its kernels once a batch, and K5 never: at world 2 the
+    time interleaver is the sharded coupling."""
     import torch_sharding_ranks as R
     from dabmod_tpu_torch.parallel.launch import spawn
     coef = tmp_path / "poly.coef"
@@ -1043,9 +1153,10 @@ def test_sharded_step_on_card_equals_unsharded(card, tmp_path):
     res = spawn(R.modulate_streams, 2, backend="gloo", device="cuda",
                 store_path=str(tmp_path / "store"), timeout_s=300,
                 args=([(s, BENCH_SPECS, 11, None) for s in settings],))
-    # launches of (K1, K2, K3) over the two batches, on each rank
-    for ci, (s, launches) in enumerate(zip(settings, ((0, 2, 2),
-                                                      (2, 0, 0)))):
+    # launches of (K1, K2, K3, K5) over the two batches, on each rank: no
+    # K5, the sharded time interleaver runs the front end's op chain
+    for ci, (s, launches) in enumerate(zip(settings, ((0, 2, 2, 0),
+                                                      (2, 0, 0, 0)))):
         m = R.make_modulator(s, device=card)
         state = m.init_state()
         for k, b in enumerate(R.eti_batches(1, BENCH_SPECS, 11)):
@@ -1309,7 +1420,8 @@ def test_returned_output_unchanged_after_next_call_on_card(card):
 KERNEL_NAMES = {"ofdm_ifft_kernel": "ofdm_backend",
                 "ofdm_cfr_kernel": "ofdm_cfr_backend",
                 "resample_poly": "resample",
-                "kiss_ifft_kernel": "kiss_ifft"}
+                "kiss_ifft_kernel": "kiss_ifft",
+                "frontend_kernel": "frontend"}
 
 
 def _kernel_of(event_name: str) -> str:
@@ -1368,7 +1480,7 @@ def test_launch_counts_equal_replays_on_card(card):
     traced = _traced_launches(run)
     (cap,) = m.compiled.graphs.values()
     assert cap.launches == {"ofdm_backend": 0, "ofdm_cfr_backend": 1,
-                            "resample": 1, "kiss_ifft": 0}
+                            "resample": 1, "kiss_ifft": 0, "frontend": 1}
     assert [k.launches for k in kernels] == [0, 2, 2]
     assert cap.replays == 4
     assert traced == {k: (1 + cap.replays) * n

@@ -121,9 +121,10 @@ def modulate_streams(mesh, cases):
     (collectives, all_reduce buffer bytes) as sharding.EXCHANGES counted
     them), and "launches" (each kernel wrapper's launches over the
     stream)."""
-    from dabmod_tpu_torch.ops import ofdm_kernel, resampler_kernel
+    from dabmod_tpu_torch.ops import (frontend_kernel, ofdm_kernel,
+                                      resampler_kernel)
     kernels = (ofdm_kernel.ofdm_backend, ofdm_kernel.ofdm_cfr_backend,
-               resampler_kernel.resample)
+               resampler_kernel.resample, frontend_kernel.frontend)
     counts = sharding.EXCHANGES
     results = []
     for settings, specs, seed, swap in cases:
