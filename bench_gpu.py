@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Throughput and stage profile of dabmod_tpu_torch on CUDA cards: the
 port's counterpart of bench.py and of the tools that time dabmod_tpu
-(tools/bench_configs.py, tools/bench_e2e.py, tools/profile_stages.py,
-tools/bench_scaling.py, tools/measure_ti_collectives.py).
+(tools/bench_configs.py, tools/profile_stages.py, tools/bench_scaling.py,
+tools/measure_ti_collectives.py; benchmark/ times the runtime end to end,
+as tools/bench_e2e.py times dabmod_tpu's).
 
     python3 bench_gpu.py [batch_tf]
     python3 bench_gpu.py --configs [batch_tf] [--only S] [--sweep L] [--json PATH]
-    python3 bench_gpu.py --e2e [--out-dir DIR] [--json PATH]
     python3 bench_gpu.py --stages [CONFIG] [batch_tf] [--json PATH]
     python3 bench_gpu.py --scaling [--worlds 1,2,4] [--config NAME] [--json PATH]
     python3 bench_gpu.py --scaling --hosts 1,2 --chips-per-host C [...]
@@ -30,12 +30,6 @@ tools/bench_scaling.py, tools/measure_ti_collectives.py).
   step must move (ETI in, outputs out, state read and written, counted
   from the tensors' shapes) over the card's published 3.35 TB/s: a lower
   bound on its memory traffic, hence the "_lb".
-* --e2e (tools/bench_e2e.py): ModRuntime on the card, an ETI file of 1000
-  synthetic frames looped, the file sink in s16 and u8, and ETI over TCP
-  into s16; frames/s, x real time and each pipeline stage's share of the
-  wall; beside the file runs the rate of batch-shaped device-to-pinned
-  copies in the same process (the transport's ceiling) and the pipeline's
-  efficiency against it, the median of 3 cycles.
 * --stages (tools/profile_stages.py): the eager step of one config (default
   "full", batch 16) under torch.profiler over 20 steps; each kernel's,
   copy's and fill's device time goes to the innermost stage range
@@ -60,13 +54,11 @@ tools/bench_scaling.py, tools/measure_ti_collectives.py).
 
 Every measurement needs a CUDA card and raises RuntimeError without one;
 --scaling and --collectives take --device cpu --backend gloo for a
-rehearsal on the CPU (host clock: no device figure).
-The timing, profile and comparison helpers are chip_smoke.py's.  Every
-JSON printed carries the card (name, power limit from nvidia-smi, count);
-a file is written only where --json says.
+rehearsal on the CPU (host clock: no device figure).  Every JSON printed
+carries the card (name, power limit from nvidia-smi, count); a file is
+written only where --json says.
 """
 import argparse
-import importlib.util
 import json
 import os
 import re
@@ -75,7 +67,6 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 
 import numpy as np
@@ -85,13 +76,8 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 METRIC = "COFDM I/Q samples/s per chip (TM-I, 2.048 MS/s native)"
-E2E_METRIC = ("end-to-end streaming x-real-time (ETI in -> wire file out), "
-              "TM-I 2-subchannel ensemble, batch_tf=24")
 BASE_RATE = 2_048_000            # samples/s of real time
 BENCH_SPECS = ((0, 24, 0x22), (48, 48, 0x02))    # bench.py's ensemble
-ETI_FRAME_S = 0.024
-E2E_FRAMES = 1000                # 250 | 1000: FCT-continuous when looped
-E2E_BATCH_TF = 24
 # the identity poly DPD (format 1; the cost is the polynomial's, not the
 # values'), as tools/bench_configs.py writes it
 IDENTITY_POLY = "1\n5\n1.0\n0\n0\n0\n0\n0\n0\n0\n0\n0\n"
@@ -142,20 +128,22 @@ ROUTES = {"resamp 4.096M": "kernel", "resamp 8.192M": "kernel",
 
 
 # ---------------------------------------------------------------------------
-# the harness and the card
+# the card, its traces and the comparisons
 # ---------------------------------------------------------------------------
 
-def harness():
-    """chip_smoke.py beside this script, loaded once as the module
-    "chip_smoke" (its timing, profile and comparison helpers)."""
-    cs = sys.modules.get("chip_smoke")
-    if cs is None:
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-        cs = importlib.util.module_from_spec(spec)
-        sys.modules["chip_smoke"] = cs
-        spec.loader.exec_module(cs)
-    return cs
+MARGIN_REL = 1e-5     # CFR threshold band (ofdm_kernel.cfr_threshold_margin)
+DPD_REL = 1e-4        # f32 tolerance after the poly DPD, of max|ref|
+HBM_BYTES_PER_S = 3.35e12        # NVIDIA H100 SXM data sheet
+# each counted kernel's __global__ function, as a device trace names it,
+# and its wrapper's name (the keys of compiled.launch_counts())
+KERNEL_NAMES = {"ofdm_ifft_kernel": "ofdm_backend",
+                "ofdm_cfr_kernel": "ofdm_cfr_backend",
+                "resample_poly": "resample",
+                "kiss_ifft_kernel": "kiss_ifft",
+                "frontend_kernel": "frontend"}
+# NCCL's all-reduce kernels, as a device trace names them
+# (ncclDevKernel_AllReduce_Sum_u8_RING_LL, ncclKernel_AllReduce_RING_LL_...)
+NCCL_ALL_REDUCE = re.compile(r"^nccl\w*AllReduce")
 
 
 def require_card(torch):
@@ -177,6 +165,170 @@ def device_info(torch) -> dict:
     return {"name": torch.cuda.get_device_name(0),
             "power_limit_w": float(m.group(1)) if m else None,
             "nvidia_smi": line, "count": torch.cuda.device_count()}
+
+
+def counted_kernels() -> dict:
+    """The port's counted kernel wrappers by name (compiled.COUNTED)."""
+    from dabmod_tpu_torch.models import compiled
+    return {name: getattr(mod, name) for mod, name in compiled.COUNTED}
+
+
+def kernel_of(event_name: str) -> str:
+    """A device event's function name without its namespace, template
+    arguments and parameters."""
+    name = event_name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
+
+
+def device_activity(torch, events) -> list:
+    """The device's kernels, copies and fills among torch.profiler events:
+    its device events less the user annotations (a record_function
+    range's span on the device timeline, from its first kernel's start to
+    its last one's end, idle gaps included)."""
+    from torch.autograd import DeviceType
+    return [e for e in events
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
+def busy_us(dev) -> float:
+    """The union of the device events' intervals, us."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + cur_e - cur_s
+
+
+def traced_launches(torch, fn, nccl=False):
+    """fn() under torch.profiler, the card synchronised before and after:
+    (its result, each counted kernel's launches on the card in the trace,
+    keyed as counted_kernels()).  With nccl, also "nccl_all_reduce", NCCL's
+    all-reduce kernels in the trace, "nccl_all_reduce_ms", their summed
+    device time, and "nccl_all_reduce_each_ms", each one's in the order
+    they started.  Raises where the trace holds no device event."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    dev = device_activity(torch, prof.events())
+    if not dev:
+        raise RuntimeError("torch.profiler traced no device event: the "
+                           "launches on the card are not measured")
+    out = dict.fromkeys(KERNEL_NAMES.values(), 0)
+    each = []
+    for e in dev:
+        name = kernel_of(e.name)
+        k = KERNEL_NAMES.get(name)
+        if k is not None:
+            out[k] += 1
+        elif nccl and NCCL_ALL_REDUCE.match(name):
+            each.append((e.time_range.start,
+                         (e.time_range.end - e.time_range.start) / 1e3))
+    if nccl:
+        each = [ms for _, ms in sorted(each)]
+        out.update(nccl_all_reduce=len(each), nccl_all_reduce_ms=sum(each),
+                   nccl_all_reduce_each_ms=each)
+    return res, out
+
+
+def time_runs(torch, fn, n, warm):
+    """n calls of fn(), each timed twice: on the card, between CUDA events
+    recorded around the call, and on the host, from the call to its return
+    (the host's time to issue it; nothing synchronises in between).
+    Returns the two lists of ms."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    dev, host = [], []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        e1.record()
+        e1.synchronize()
+        dev.append(e0.elapsed_time(e1))
+    return dev, host
+
+
+def profile_steps(torch, step, n=5) -> dict:
+    """Where one step's time goes: torch.profiler over n steps, summed up
+    by profile_summary."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return profile_summary(torch, prof.events(), wall_us, n,
+                           prof.key_averages())
+
+
+def profile_summary(torch, events, wall_us, n, averages=()) -> dict:
+    """A trace of n steps that took wall_us on the host: device busy time
+    (the union of the kernels', copies' and fills' intervals, the
+    profiler's annotations left out: device_activity), launches and the
+    host's wall time per step, and the host ops (from the trace's
+    key_averages) and the kernels that take the most device time.
+    Informational: where the trace holds no device activity, the device
+    numbers are reported as not measured."""
+    from torch.autograd import DeviceType
+    dev = device_activity(torch, events)
+    if not dev:
+        return {"device_time": "not measured (no device events traced)",
+                "host_wall_ms_per_step": wall_us / n / 1e3}
+    busy = busy_us(dev)
+    # device time by the host op that launched it (a kernel launched
+    # through ctypes has no host op: see the kernel list)
+    ops = []
+    for a in averages:
+        us = getattr(a, "self_device_time_total", None)
+        if us is None:
+            us = getattr(a, "self_cuda_time_total", 0.0)
+        if a.device_type == DeviceType.CPU and us > 0:
+            ops.append((a.key, us, a.count))
+    ops.sort(key=lambda o: -o[1])
+    kernels = {}
+    for e in dev:
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0][-60:]
+        us, count = kernels.get(name, (0.0, 0))
+        kernels[name] = (us + e.time_range.end - e.time_range.start,
+                         count + 1)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"host_wall_ms_per_step": wall_us / n / 1e3,
+            "device_busy_ms_per_step": busy / n / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "device_ops_per_step": len(dev) / n,
+            "top_ops_device_ms_per_step": [
+                [key, us / n / 1e3, count // n] for key, us, count in ops[:8]],
+            "top_kernels_device_ms_per_step": [
+                [key, us / n / 1e3, count // n] for key, (us, count) in top]}
+
+
+def host_bits(tree) -> list:
+    """The tensors of a step's (output, stats, state) on the host, in
+    pytree order."""
+    from torch.utils._pytree import tree_leaves
+    return [x.cpu().numpy() for x in tree_leaves(tree)]
+
+
+def same_bits(got, want) -> bool:
+    return len(got) == len(want) and all(
+        a.dtype == b.dtype and a.shape == b.shape
+        and a.tobytes() == b.tobytes() for a, b in zip(got, want))
 
 
 # ---------------------------------------------------------------------------
@@ -317,10 +469,9 @@ def attribute_stages(torch, events, stages, n_steps) -> dict:
     launch's runtime call (the host event of the same correlation id: a
     kernel launched through ctypes has no aten op); OTHER where no range
     encloses the launch.  Per stage, a step: device ms, launches, share of
-    the device time, and the port's counted kernels (chip_smoke
-    KERNEL_SYMBOLS) by their launches."""
+    the device time, and the port's counted kernels (KERNEL_NAMES) by
+    their launches."""
     from torch.autograd import DeviceType
-    cs = harness()
     calls = {e.id: (e.thread, e.time_range.start) for e in events
              if e.device_type == DeviceType.CPU and e.name not in stages
              and _RUNTIME_CALL.match(e.name)}
@@ -329,7 +480,7 @@ def attribute_stages(torch, events, stages, n_steps) -> dict:
     for name, thread, start, end in recorded_ranges(events, stages):
         by_thread.setdefault(thread, []).append((start, end, name))
     acc = {}
-    for e in cs.device_activity(torch, events):
+    for e in device_activity(torch, events):
         where = calls.get(e.id)
         stage = OTHER
         if where is not None:
@@ -342,7 +493,7 @@ def attribute_stages(torch, events, stages, n_steps) -> dict:
                                      "kernels": {}})
         rec["us"] += e.time_range.end - e.time_range.start
         rec["launches"] += 1
-        k = cs.KERNEL_SYMBOLS.get(cs._kernel_of(e.name))
+        k = KERNEL_NAMES.get(kernel_of(e.name))
         if k is not None:
             rec["kernels"][k] = rec["kernels"].get(k, 0) + 1
     total = sum(r["us"] for r in acc.values())
@@ -355,8 +506,8 @@ def attribute_stages(torch, events, stages, n_steps) -> dict:
 
 
 # the stage each counted kernel may run under
-KERNEL_STAGE = {"ofdm_ifft": "ofdm_ifft", "ofdm_cfr": "ofdm_ifft",
-                "resample_poly": "resampler", "kiss_ifft": "kiss_ifft",
+KERNEL_STAGE = {"ofdm_backend": "ofdm_ifft", "ofdm_cfr_backend": "ofdm_ifft",
+                "resample": "resampler", "kiss_ifft": "kiss_ifft",
                 "frontend": "fec"}
 
 
@@ -365,7 +516,7 @@ def stage_problems(rec, other_max=0.05, busy_rel=0.02) -> list:
     with device time and launches, no other range, the port's kernels
     under their stages only, OTHER at most other_max of the device time,
     and the stages' sum within busy_rel of the same trace's device busy
-    time (chip_smoke profile_summary)."""
+    time (profile_summary)."""
     bad = []
     st = rec["stages"]
     if sorted(set(rec["recorded"])) != sorted(set(rec["expected"])):
@@ -429,13 +580,14 @@ def _poly_file(d) -> str:
 
 
 def check_first_batch(torch, name, m, cpu, batch, first):
-    """The card's first step (its output, stats) against the CPU
-    modulator's on the same batch from init_state, by chip_smoke's
-    compare_batch: f32 within 3e-5*max|ref| (1e-4 after the poly DPD),
-    with CFR the statistics and the clip counts within the threshold
-    margin."""
+    """The card's first step (its f32 planes, stats) against the CPU
+    modulator's on the same batch from init_state: the planes within
+    3e-5*max|ref| (fp32 transforms and reductions in other orders;
+    DPD_REL after the poly DPD), and with CFR the clip counts within the
+    threshold margin, PAPR within 1e-3 dB, MER within 0.1 dB and
+    mer_valid equal.  Raises where they differ; returns the largest
+    difference and its tolerance."""
     from dabmod_tpu_torch.ops import ofdm_kernel
-    cs = harness()
     state = cpu.init_state()
     margin = None
     if cpu.settings.enable_cfr:
@@ -443,26 +595,47 @@ def check_first_batch(torch, name, m, cpu, batch, first):
                                    state["ti_history"], state["tf_index"])
         margin = ofdm_kernel.cfr_threshold_margin(
             syms, cpu._ofdm_table, cpu.settings.cfr_clip,
-            cpu.settings.cfr_error_clip, rel=cs.MARGIN_REL
+            cpu.settings.cfr_error_clip, rel=MARGIN_REL
         ).sum(dim=1).numpy()
     out, _, stats = cpu.modulate_eti(batch, state)
     g_out, g_stats = first
-    rel = cs.DPD_REL if cpu.settings.poly_coef_file else 3e-5
-    err, tol = cs.compare_batch(
-        f"{name}: card vs CPU", "f32", cs._to_host(g_out),
-        {k: v.cpu().numpy() for k, v in g_stats.items()}, cs._to_host(out),
-        {k: v.numpy() for k, v in stats.items()}, cpu.tf_samples_out,
-        margin, rel, n_tf=batch.fic.shape[0] // cpu.p.cif_count)
+    g = [x.cpu().numpy() for x in g_out]
+    c = [x.numpy() for x in out]
+    gs = {k: v.cpu().numpy() for k, v in g_stats.items()}
+    cs = {k: v.numpy() for k, v in stats.items()}
+    rel = DPD_REL if cpu.settings.poly_coef_file else 3e-5
+    shape = (batch.fic.shape[0] // cpu.p.cif_count, cpu.tf_samples_out)
+    bad = [f"stats keys {sorted(gs)} != {sorted(cs)}"] if set(gs) != set(
+        cs) else []
+    bad += [f"planes {a.shape} {a.dtype}, not {shape} float32" for a in g
+            if a.shape != shape or a.dtype != np.float32]
+    err = max(float(np.abs(a - b).max()) for a, b in zip(g, c))
+    tol = rel * max(float(np.abs(x).max()) for x in c)
+    if not err <= tol:
+        bad.append(f"max abs err {err} > {tol}")
+    if margin is not None:
+        for key, lane in (("cfr_clip", 0), ("cfr_errclip", 1)):
+            d = np.abs(gs[key].astype(np.int64) - cs[key])
+            if not (d <= margin[:, lane]).all():
+                bad.append(f"{key} differs beyond the threshold margin")
+        for key, atol in (("papr_before_cfr", 1e-3),
+                          ("papr_after_cfr", 1e-3), ("mer_db", 0.1)):
+            d = float(np.abs(gs[key] - cs[key]).max())
+            if not d <= atol:
+                bad.append(f"{key} differs by {d} > {atol}")
+        if not np.array_equal(gs["mer_valid"], cs["mer_valid"]):
+            bad.append("mer_valid differs")
+    if bad:
+        raise RuntimeError(f"{name}: card vs CPU: {'; '.join(bad)}")
     return {"max_abs_err": err, "tol": tol, "rel": rel}
 
 
 def time_steps(torch, m, staged, steps, runs):
     """The captured and the eager step of m over the staged batches in
     turn, the state threaded through, each as {"ms": per-step device ms
-    of each run (CUDA events around `steps` steps, chip_smoke time_runs)
-    in quartiles, "issue_ms": the host's ms to issue a step, "step": the
+    of each run (CUDA events around `steps` steps, time_runs) in
+    quartiles, "issue_ms": the host's ms to issue a step, "step": the
     step function, for profiling}."""
-    cs = harness()
     st = [m.init_state()]
     i = [0]
 
@@ -484,7 +657,7 @@ def time_steps(torch, m, staged, steps, runs):
         def run(fn=fn):
             for _ in range(steps):
                 fn()
-        dev, host = cs.time_runs(torch, run, n=runs, warm=1)
+        dev, host = time_runs(torch, run, n=runs, warm=1)
         res[key] = {"ms": quartiles([d / steps for d in dev], steps),
                     "issue_ms": statistics.median(host) / steps, "step": fn}
     return res
@@ -495,7 +668,6 @@ def bench_one(torch, row, batch_tf, poly_path, steps=STEPS, runs=RUNS,
     """One row of --configs at batch_tf TM I TFs (module docstring); card
     is device_info's record."""
     require_card(torch)
-    cs = harness()
     card = card or device_info(torch)
     name, mode, _kw = row
     m, specs = build_modulator(row, poly_path, "cuda")
@@ -515,7 +687,7 @@ def bench_one(torch, row, batch_tf, poly_path, steps=STEPS, runs=RUNS,
     t = time_steps(torch, m, staged, steps, runs)
     step, eager = t["captured"]["ms"], t["eager"]["ms"]
     tf_duration = m.p.tf_samples / BASE_RATE
-    bound_ms = nb["total"] / cs.HBM_BYTES_PER_S * 1e3
+    bound_ms = nb["total"] / HBM_BYTES_PER_S * 1e3
     row = {"config": name, "mode": mode, "out_rate": m.settings.output_rate,
            "resampler_route": m._res_route,
            "samples_per_s": n_out / (step["median"] / 1e3),
@@ -529,10 +701,10 @@ def bench_one(torch, row, batch_tf, poly_path, steps=STEPS, runs=RUNS,
            "hbm_bytes": nb, "hbm_bytes_per_sample_lb": nb["per_sample_lb"],
            "bytes_bound_ms": bound_ms,
            "bytes_bound_share": bound_ms / step["median"],
-           "hbm_bytes_per_s": cs.HBM_BYTES_PER_S,
+           "hbm_bytes_per_s": HBM_BYTES_PER_S,
            "power_limit_w": card["power_limit_w"], "check": check}
     for key in ("captured", "eager"):
-        prof = cs.profile_steps(torch, t[key]["step"])
+        prof = profile_steps(torch, t[key]["step"])
         pre = "" if key == "captured" else "eager_"
         row[pre + "device_busy_ms"] = prof.get("device_busy_ms_per_step")
         row[pre + "device_idle_share"] = prof.get("device_idle_share")
@@ -587,11 +759,10 @@ def profile_stages(torch, sel="full", batch_tf=16, steps=STAGE_STEPS) -> dict:
     """--stages: the eager step of the row named like `sel` under
     torch.profiler over `steps` steps, attributed to the stage ranges
     (attribute_stages), beside the same trace's device busy time
-    (chip_smoke profile_summary)."""
+    (profile_summary)."""
     require_card(torch)
     from torch.profiler import ProfilerActivity, profile
     from dabmod_tpu_torch.models.modulator import STAGES
-    cs = harness()
     device = device_info(torch)
     row = find_config(sel)
     with tempfile.TemporaryDirectory(prefix="bench_gpu_") as d:
@@ -615,7 +786,7 @@ def profile_stages(torch, sel="full", batch_tf=16, steps=STAGE_STEPS) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
-    summary = cs.profile_summary(torch, events, wall_us, steps)
+    summary = profile_summary(torch, events, wall_us, steps)
     stages = attribute_stages(torch, events, STAGES, steps)
     recorded = [r[0] for r in recorded_ranges(events, STAGES)]
     wall_ms = wall_us / steps / 1e3
@@ -657,163 +828,6 @@ def print_stages(rec):
     print(f"{'total device':16s} {rec['stage_sum_ms_per_step']:14.4f}  "
           f"(busy {_num(rec['device_busy_ms_per_step'])}, wall {wall:.3f})")
     print(f"note: {rec['note']}")
-
-
-# ---------------------------------------------------------------------------
-# --e2e: the runtime end to end
-# ---------------------------------------------------------------------------
-
-def transport_rate(torch, n_tf=E2E_BATCH_TF, k=8, reps=3):
-    """Batch-shaped device-to-pinned copies ([n_tf, 196608] int32, the s16
-    output of a TM I batch), k back to back, reps times: (median, peak)
-    bytes/s."""
-    require_card(torch)
-    shape = (n_tf, 196608)
-    src = [torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
-                         device="cuda") for _ in range(k)]
-    dst = [torch.empty(shape, dtype=torch.int32, pin_memory=True)
-           for _ in range(k)]
-    nbytes = k * src[0].numel() * 4
-    dst[0].copy_(src[0])
-    rates = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for a, b in zip(src, dst):
-            b.copy_(a, non_blocking=True)
-        torch.cuda.synchronize()
-        rates.append(nbytes / (time.perf_counter() - t0))
-    return statistics.median(rates), max(rates)
-
-
-def run_runtime(settings, seconds):
-    """ModRuntime on the card: 2 batches to warm up, 4 to size the run,
-    then a run of about `seconds`: (frames, s, each timing's share)."""
-    from dabmod_tpu_torch.runtime import ModRuntime
-    rt = ModRuntime(settings, device="cuda")
-    try:
-        rt.run_batches(2)
-        t0 = time.perf_counter()
-        rt.run_batches(4)
-        per_batch = (time.perf_counter() - t0) / 4
-        n = max(8, min(2000, int(seconds / max(per_batch, 1e-3))))
-        f0, before = rt.framecount, dict(rt.timings)
-        t0 = time.perf_counter()
-        rt.run_batches(n)
-        dt = time.perf_counter() - t0
-        frames = rt.framecount - f0
-        shares = {k: (v - before[k]) / dt for k, v in rt.timings.items()}
-    finally:
-        rt.close()
-    return frames, dt, shares
-
-
-def _e2e_record(frames, dt, shares):
-    return {"frames": frames, "seconds": dt,
-            "x_realtime": frames * ETI_FRAME_S / dt,
-            "share_of_wall": shares}
-
-
-def e2e_file(inp, out_dir, fmt, seconds):
-    from dabmod_tpu_torch.config import ModSettings
-    s = ModSettings(input_name=inp, loop=True, output="file",
-                    output_name=os.path.join(out_dir, f"out_{fmt}.iq"),
-                    file_output_format=fmt, batch_tf=E2E_BATCH_TF)
-    s.normalise_for_output()
-    return _e2e_record(*run_runtime(s, seconds))
-
-
-def e2e_tcp(inp, out_dir, fmt, seconds):
-    """ETI over TCP from a local server thread that sends the file in a
-    loop."""
-    from dabmod_tpu_torch.config import ModSettings
-    with open(inp, "rb") as f:
-        data = f.read()
-    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-    srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-    srv.bind(("127.0.0.1", 0))
-    srv.listen(1)
-    srv.settimeout(30)
-    port = srv.getsockname()[1]
-    stop = threading.Event()
-
-    def serve():
-        try:
-            conn, _ = srv.accept()
-        except OSError:
-            return
-        try:
-            while not stop.is_set():
-                conn.sendall(data)
-        except OSError:
-            pass
-        finally:
-            conn.close()
-
-    t = threading.Thread(target=serve, daemon=True)
-    t.start()
-    s = ModSettings(input_name=f"tcp://127.0.0.1:{port}",
-                    input_transport="tcp", output="file",
-                    output_name=os.path.join(out_dir, f"tcp_{fmt}.iq"),
-                    file_output_format=fmt, batch_tf=E2E_BATCH_TF)
-    s.normalise_for_output()
-    try:
-        rec = _e2e_record(*run_runtime(s, seconds))
-    finally:
-        stop.set()
-        srv.close()
-        t.join(timeout=10)
-    rec["port"] = port
-    return rec
-
-
-def with_ceiling(torch, fn, bytes_per_sample, cycles=3) -> dict:
-    """`cycles` cycles of (transport rate, fn(), transport rate): each
-    cycle's ceiling is the peak copy rate of its two brackets in x real
-    time; the cycle of median efficiency is kept, with every cycle's
-    efficiency (tools/bench_e2e.py's method)."""
-    runs = []
-    for _ in range(cycles):
-        sus_b, peak_b = transport_rate(torch)
-        r = fn()
-        sus_a, peak_a = transport_rate(torch)
-        peak = max(peak_b, peak_a)
-        ceil = peak / bytes_per_sample / BASE_RATE
-        r.update(transport_MBps=(sus_b + sus_a) / 2 / 1e6,
-                 transport_peak_MBps=peak / 1e6,
-                 transport_ceiling_x=ceil,
-                 pipeline_efficiency=r["x_realtime"] / ceil)
-        runs.append(r)
-    runs.sort(key=lambda x: x["pipeline_efficiency"])
-    r = dict(runs[len(runs) // 2])
-    r["efficiency_cycles"] = [x["pipeline_efficiency"] for x in runs]
-    return r
-
-
-def bench_e2e(torch, out_dir=None, seconds=4.0, cycles=3) -> dict:
-    """--e2e (module docstring).  The ETI file and the outputs go to a
-    fresh directory under out_dir (default: the temporary directory)."""
-    require_card(torch)
-    from dabmod_tpu_torch.eti import synth_eti_batch
-    device = device_info(torch)
-    base = out_dir or tempfile.gettempdir()
-    with tempfile.TemporaryDirectory(prefix="bench_gpu_e2e_",
-                                     dir=base) as d:
-        inp = os.path.join(d, "in.eti")
-        synth_eti_batch(E2E_FRAMES, mode=1, subch_specs=BENCH_SPECS
-                        ).tofile(inp)
-        res = {"metric": E2E_METRIC, "out_dir": base,
-               "input_frames": E2E_FRAMES, "batch_tf": E2E_BATCH_TF,
-               "transport": "device-to-pinned copies of [24, 196608] int32 "
-                            "batches, 8 back to back, in this process; the "
-                            "ceiling is the peak of the two brackets"}
-        res["file_s16"] = with_ceiling(
-            torch, lambda: e2e_file(inp, d, "s16", seconds), 4, cycles)
-        res["tcp_s16"] = e2e_tcp(inp, d, "s16", seconds)
-        res["file_u8"] = with_ceiling(
-            torch, lambda: e2e_file(inp, d, "u8", seconds), 2, cycles)
-    res["device"] = device
-    return res
 
 
 # ---------------------------------------------------------------------------
@@ -910,14 +924,13 @@ def _all_max(torch, mesh, values) -> list:
 
 
 def traced_nccl(torch, mesh, step, steps):
-    """`steps` calls of step() traced after a barrier (chip_smoke
-    traced_launches): the trace's counts, and NCCL's all-reduce device ms
+    """`steps` calls of step() traced after a barrier
+    (traced_launches): the trace's counts, and NCCL's all-reduce device ms
     a step, the median over the steps of each one's kernels (the wait for
     the slowest peer included; the ranks' skew in starting the trace
     lands on the first step alone)."""
-    cs = harness()
     _barrier(mesh)
-    _, traced = cs.traced_launches(
+    _, traced = traced_launches(
         torch, lambda: [step() for _ in range(steps)], nccl=True)
     each = traced["nccl_all_reduce_each_ms"]
     k = len(each) // steps
@@ -938,7 +951,6 @@ def _reference(torch, row, spec, staged, mesh):
     the final state, on the host; at world 1 also the unsharded captured
     step's (Modulator.modulate) times, as bench_default takes them.  The
     modulator is freed before the sharded step runs."""
-    cs = harness()
     dev = mesh.device
     m, _ = build_modulator(row, spec["poly"], dev)
     tfs = mesh.tf_slice(staged[0][0].shape[0] // m.p.cif_count)
@@ -948,8 +960,8 @@ def _reference(torch, row, spec, staged, mesh):
             out, st, _ = m._modulate_impl(fic, subs, st, *m._gain_args(),
                                           m._apply_swaps())
         outs.append([x[tfs].cpu().numpy() for x in _leaves(out)])
-    ref = {"outs": outs, "state": cs._bits(st),
-           "rel": cs.DPD_REL if m.settings.poly_coef_file else 3e-5}
+    ref = {"outs": outs, "state": host_bits(st),
+           "rel": DPD_REL if m.settings.poly_coef_file else 3e-5}
     if spec["unsharded"]:
         st = [m.init_state()]
         i = [0]
@@ -987,7 +999,6 @@ def scaling_rank(mesh, spec: dict) -> dict:
     rank returns them.  JSON-ready."""
     import torch
     from dabmod_tpu_torch.parallel import ShardedModulator
-    cs = harness()
     dev = mesh.device
     cuda = dev.type == "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1001,7 +1012,7 @@ def scaling_rank(mesh, spec: dict) -> dict:
     ref = _reference(torch, row, spec, staged, mesh)
 
     sm = ShardedModulator(m, mesh)
-    kernels = cs._kernels()
+    kernels = counted_kernels()
 
     def path():
         st, outs = sm.init_state(), []
@@ -1013,7 +1024,7 @@ def scaling_rank(mesh, spec: dict) -> dict:
     for k in kernels.values():
         k.launches = 0
     if cuda:
-        (st, outs), on_card = cs.traced_launches(torch, path, nccl=True)
+        (st, outs), on_card = traced_launches(torch, path, nccl=True)
     else:
         (st, outs), on_card = path(), None
     launches = {k: f.launches for k, f in kernels.items()}
@@ -1027,7 +1038,7 @@ def scaling_rank(mesh, spec: dict) -> dict:
             diff = max(diff, d)
             excess = max(excess, d / tol if tol else (0.0 if d == 0
                                                       else np.inf))
-    state_equal = cs._same_bits(cs._bits(st), ref["state"])
+    state_equal = same_bits(host_bits(st), ref["state"])
 
     state = [st]
     i = [0]
@@ -1392,12 +1403,11 @@ def collectives_rank(mesh, spec: dict) -> list:
     from dabmod_tpu_torch.models import Modulator, compiled, \
         make_default_layout
     from dabmod_tpu_torch.parallel import EXCHANGES, ShardedModulator
-    cs = harness()
     dev = mesh.device
     cuda = dev.type == "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = cs._kernels()
+    kernels = counted_kernels()
     out = []
     for name, ensemble, kw, n_tf in spec["configs"]:
         specs = REALISTIC_MUX_SPECS if ensemble == "realistic" \
@@ -1630,7 +1640,6 @@ def main(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--configs", action="store_true")
-    mode.add_argument("--e2e", action="store_true")
     mode.add_argument("--stages", action="store_true")
     mode.add_argument("--scaling", action="store_true")
     mode.add_argument("--collectives", action="store_true")
@@ -1643,9 +1652,6 @@ def main(argv=None):
     ap.add_argument("--sweep", default=None,
                     help="--configs: comma-separated batch_tf list, each "
                          "row at its best")
-    ap.add_argument("--out-dir", default=None,
-                    help="--e2e: where the ETI file and the outputs go "
-                         "(default: the temporary directory)")
     ap.add_argument("--worlds", default="1,2,4",
                     help="--scaling: comma-separated world sizes, ranks "
                          "spawned in one launcher")
@@ -1701,8 +1707,6 @@ def main(argv=None):
         names = [r[0] for r in ALL_CONFIGS
                  if args.only is None or args.only in r[0]]
         rec = run_configs(torch, names, batches)
-    elif args.e2e:
-        rec = bench_e2e(torch, args.out_dir)
     elif args.scaling:
         kw = dict(config=args.config, device=args.device, backend=backend)
         if args.hosts:

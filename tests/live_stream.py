@@ -1,5 +1,5 @@
-"""Live inputs and sinks for the tests of the port's A10(b) modules and
-chip_smoke.py's phase 8: an ETI multiplex re-encoded as an EDI stream with
+"""Live inputs and sinks for the tests of the port's A10(b) modules, on
+the CPU and on the card (tests/test_torch_cuda.py): an ETI multiplex re-encoded as an EDI stream with
 per-frame timestamps, served over TCP or sent over UDP at a paced rate; ETI
 bytes served over TCP; a runtime (either package's) driven in a thread
 until it has modulated a number of frames; wrappers that record what the

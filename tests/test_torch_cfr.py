@@ -5,7 +5,7 @@ On the CPU the K2 wrapper takes its plain version, which is held here
 against dabmod_tpu's Pallas kernel run in interpret mode with the same
 carrier map (enable_cfr=True, HIGHEST precision) and against its XLA
 cfr_one_iteration.  The CUDA kernel itself runs only on a card
-(tests/test_torch_cuda.py, chip_smoke.py).
+(tests/test_torch_cuda.py).
 
 Tolerances (tests/test_ofdm_kernel.py:43-62): td within 2e-5*max|ref|
 (fp32 transforms summed in other orders); clip counts equal at these fixed

@@ -5,7 +5,8 @@
   (f32 within 3e-5*max|ref|, tests/test_ofdm_kernel.py:88-89).
 * No host synchronisation inside Modulator._modulate_impl after a warm-up
   step: a TorchDispatchMode sees every aten op the step runs, on each
-  variant of chip_smoke's phases 4 and 6 that fits a small CPU run.  The
+  path and variant tests/test_torch_cuda.py runs on the card, at a size
+  that fits a small CPU run.  The
   kernels' plain versions, which the card replaces with K1-K3, are left
   out of the check.
 * GraphStep's host logic, with a stand-in for torch.cuda.CUDAGraph that
@@ -47,7 +48,7 @@ def _restore_jax_precision():
 
 
 def _dpd_files(d):
-    """chip_smoke's poly and LUT files (formats 1 and 2)."""
+    """The poly and LUT files (formats 1 and 2) of the DPD chains."""
     lut = (np.linspace(1.0, 0.9, 32) + 1j * np.linspace(0, 0.05, 32)
            ).astype(np.complex64)
     poly, lutf = d / "poly.coef", d / "lut.coef"
@@ -65,8 +66,8 @@ DPD_8M192 = dict(tii_enable=True, tii_comb=5, tii_pattern=31,
                  ofdm_window_overlap=90, filter_taps_file="default",
                  output_rate=8_192_000)
 
-# chip_smoke's phase-4 paths and phase-6 variants (and the kiss and dexter
-# engines of phase 7), at 1 TF a batch: (TM, settings, output)
+# the card's paths and variants (tests/test_torch_cuda.py), with the kiss
+# and dexter engines, at 1 TF a batch: (TM, settings, output)
 VARIANTS = {
     "main_f32": (1, {}, "f32"),
     "main_s16": (1, {}, "s16"),

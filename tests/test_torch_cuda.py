@@ -1,13 +1,20 @@
-"""The port on a CUDA card: each kernel against its plain PyTorch version,
-and the modulator on the card against the same modulator on the CPU.
+"""The port on a CUDA card, the one check of it there: each kernel built
+without spills and against its plain PyTorch version, the front end and
+the fixed-point chain against the reference's goldens, the modulator on
+the card against the same modulator on the CPU (at full width too), the
+captured step against the eager one, the runtime, the CLI, the live
+inputs and the sharded step (over four cards where there are four).
 
-Every test here carries the `cuda` marker and skips without a card.  The
-file imports neither JAX nor dabmod_tpu, so it also runs where JAX is not
-installed:
+Every test here but the parser's (test_ptxas_log_parser) carries the
+`cuda` marker and skips without a card (the four-card cases with fewer
+than four).  The file imports neither JAX nor dabmod_tpu, so it also runs
+where JAX is not installed:
 
     DABMOD_TEST_ON_TPU=1 python -m pytest tests/test_torch_cuda.py -m cuda
 
-(DABMOD_TEST_ON_TPU=1 keeps tests/conftest.py from importing JAX.)
+(DABMOD_TEST_ON_TPU=1 keeps tests/conftest.py from importing JAX.)  The
+kernels' times are time_kernels.py's, the steps' bench_gpu.py's and the
+program's the benchmark's (benchmark/).
 
 Tolerances: fp32 transforms summed in other orders, atol 2e-5*max|ref| for
 the OFDM kernels (tests/test_ofdm_kernel.py:31-32) and 3e-5*max|ref|
@@ -24,18 +31,26 @@ u8/s8 wire byte-equal.  TF32 is off, except in the tests that run with
 every global flag at torch's default (`torch_defaults`).
 """
 import os
+import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+import bench_gpu
 from dabmod_tpu_torch import tables
 from dabmod_tpu_torch.config import ModSettings
-from dabmod_tpu_torch.eti import parse_eti_frames, synth_eti_batch
+from dabmod_tpu_torch.eti import (REALISTIC_MUX_SPECS, parse_eti_frames,
+                                  synth_eti_batch)
 from dabmod_tpu_torch.models import Modulator, make_default_layout
-from dabmod_tpu_torch.ops import (filters, kiss_kernel, ofdm, ofdm_kernel,
-                                  resampler_kernel)
+from dabmod_tpu_torch.ops import (build, filters, kiss_kernel, ofdm,
+                                  ofdm_kernel, resampler_kernel)
 from dabmod_tpu_torch.ops.filters import PolyphasePlan
+from golden import load as load_golden
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -48,6 +63,89 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+def _cards(n):
+    """Skips below n cards."""
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards, one a rank")
+
+
+# ---------------------------------------------------------------------------
+# the builds: no kernel spills
+# ---------------------------------------------------------------------------
+
+def parse_ptxas(text: str) -> dict:
+    """Each function in nvcc's -Xptxas -v output (keyed by its mangled
+    name): its registers, shared memory and spill stores and loads, in
+    bytes."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", ln)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {"registers": 0, "smem_bytes": 0,
+                                  "spill_stores": 0, "spill_loads": 0})
+            continue
+        if name is None:
+            continue
+        for key, pattern in (("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(pattern, ln)
+            if m:
+                out[name][key] = int(m.group(1))
+    return out
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6spillyILi11EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6spillyILi11EEvPf
+    48 bytes stack frame, 40 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, 16384 bytes smem, 368 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z5cleanPf' for 'sm_90a'
+ptxas info    : Function properties for _Z5cleanPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, 5120 bytes smem, 360 bytes cmem[0]
+"""
+
+
+def test_ptxas_log_parser():
+    """The parser of the spill check, on a log of one spilling function
+    and one clean one (no card needed)."""
+    got = parse_ptxas(PTXAS_LOG)
+    assert got == {
+        "_Z6spillyILi11EEvPf": {"registers": 255, "smem_bytes": 16384,
+                                "spill_stores": 40, "spill_loads": 16},
+        "_Z5cleanPf": {"registers": 32, "smem_bytes": 5120,
+                       "spill_stores": 0, "spill_loads": 0}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", build.SOURCES)
+def test_kernel_source_builds_without_spills(card, source):
+    """Every function of each CUDA source, as ptxas reports it in the log
+    that build.build keeps beside the library (-Xptxas -v): no byte of
+    spill stores or loads."""
+    (path,) = build.build(source)
+    with open(path + ".log") as f:
+        funcs = parse_ptxas(f.read())
+    assert funcs, f"{source}: ptxas reports no function"
+    spilled = {k: v for k, v in funcs.items()
+               if v["spill_stores"] or v["spill_loads"]}
+    assert not spilled, spilled
+
+
+@pytest.mark.cuda
+def test_native_host_library_loads_on_card(card):
+    """The native host library (native/dabmod_native.cpp, g++) builds and
+    loads beside the card: the EDI RS decode and the host format
+    conversion take it, not their NumPy branches."""
+    from dabmod_tpu_torch import native
+    assert native.get_lib() is not None
 
 
 def _mode_table(mode, card):
@@ -273,24 +371,34 @@ MOD_PATHS = {"main": {},
                                  cfr_error_clip=0.1, output_rate=3_072_000)}
 
 
+# the paths no cell runs, also at full width: the 17-sub-channel ensemble
+# at 24 TFs a batch ("<path>_full")
+FULL_WIDTH = ("cfr_8m192", "cfr30_3m072")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["planes", "s16"])
-@pytest.mark.parametrize("path", list(MOD_PATHS))
+@pytest.mark.parametrize("path", [*MOD_PATHS, *(p + "_full"
+                                                 for p in FULL_WIDTH)])
 def test_modulator_on_card_matches_cpu(card, path, fmt):
-    """Two batches of 2 TFs, state carried, through the kernels on the card
-    and through the plain versions on the CPU."""
+    """Two batches, state carried, through the kernels on the card and
+    through the plain versions on the CPU: 2 TFs of bench.py's ensemble,
+    or at full width 24 TFs of the 17 sub-channels."""
+    full = path.endswith("_full")
+    path = path.removesuffix("_full")
+    specs, tfs = (REALISTIC_MUX_SPECS, 24) if full else (BENCH_SPECS, 2)
     kw = (dict(device_interleave=False) if fmt == "planes"
           else dict(output="file", file_output_format="s16"))
     settings = ModSettings(dab_mode=1, **kw,
                            **MOD_PATHS[path]).normalise_for_output()
     kernels = ((ofdm_kernel.ofdm_cfr_backend, resampler_kernel.resample)
                if path != "main" else (ofdm_kernel.ofdm_backend,))
-    raw = synth_eti_batch(16, mode=1, subch_specs=BENCH_SPECS, seed=4)
-    batches = [parse_eti_frames(raw[:8]), parse_eti_frames(raw[8:])]
+    raw = synth_eti_batch(8 * tfs, mode=1, subch_specs=specs, seed=4)
+    batches = [parse_eti_frames(raw[:4 * tfs]),
+               parse_eti_frames(raw[4 * tfs:])]
     outs, margins = {}, []
     for dev in (card, "cpu"):
-        m = Modulator(make_default_layout(1, BENCH_SPECS), settings,
-                      device=dev)
+        m = Modulator(make_default_layout(1, specs), settings, device=dev)
         state, res = m.init_state(), []
         before = [k.launches for k in kernels]
         for b in batches:
@@ -305,7 +413,7 @@ def test_modulator_on_card_matches_cpu(card, path, fmt):
         launched = [k.launches - n for k, n in zip(kernels, before)]
         assert launched == [WARMUP_AND_CAPTURE if dev == card else 0] * len(
             kernels)
-        assert int(state["tf_index"]) == 4
+        assert int(state["tf_index"]) == 2 * tfs
         outs[str(dev)] = res
     for i, ((g, gs), (c, cs)) in enumerate(zip(outs[str(card)],
                                                outs["cpu"])):
@@ -495,9 +603,9 @@ def _poly_file(directory, am=POLY_AM, pm=POLY_PM, name="poly.coef"):
 
 
 def _dpd_chain_kw(tmp_path):
-    """chip_smoke.py's realistic17_dpd_8m192 chain (the benchmark's
-    r17_dpd8m192): TII (comb 5, pattern 31), CFR 40/3, overlap 90, the
-    default FIR, 8.192 MS/s, the poly DPD."""
+    """The DPD chain of the benchmark's r17_dpd8m192: TII (comb 5, pattern
+    31), CFR 40/3, overlap 90, the default FIR, 8.192 MS/s, the poly
+    DPD."""
     return dict(tii_enable=True, tii_comb=5, tii_pattern=31, enable_cfr=True,
                 cfr_clip=40.0, cfr_error_clip=3.0, ofdm_window_overlap=90,
                 filter_taps_file="default", output_rate=8_192_000,
@@ -511,18 +619,18 @@ def _dpd_chain(tmp_path):
         **_dpd_chain_kw(tmp_path)).normalise_for_output()
 
 
-def _run_both(card, settings, n_batches=2, seed=6, traced=None):
-    """The modulator on the card and on the CPU, two batches of 2 TFs with
-    the state carried; returns ({dev: [(out, stats)]}, launches on the
-    card per kernel)."""
+def _run_both(card, settings, n_batches=2, seed=6, traced=None, mode=1):
+    """The modulator on the card and on the CPU, two batches of 8 ETI
+    frames (2 TFs in TM I) with the state carried; returns
+    ({dev: [(out, stats)]}, launches on the card per kernel)."""
     kernels = {"ofdm_ifft": ofdm_kernel.ofdm_backend,
                "ofdm_cfr": ofdm_kernel.ofdm_cfr_backend,
                "resample_poly": resampler_kernel.resample}
-    raw = synth_eti_batch(8 * n_batches, mode=1, subch_specs=BENCH_SPECS,
+    raw = synth_eti_batch(8 * n_batches, mode=mode, subch_specs=BENCH_SPECS,
                           seed=seed)
     outs, launched = {}, {}
     for dev in (card, "cpu"):
-        m = Modulator(make_default_layout(1, BENCH_SPECS), settings,
+        m = Modulator(make_default_layout(mode, BENCH_SPECS), settings,
                       device=dev)
         state, res = m.init_state(), []
         before = {k: f.launches for k, f in kernels.items()}
@@ -576,15 +684,21 @@ def test_resampler_route_on_card(card, rate, mode, k3):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kw", [
-    dict(output="file", file_output_format="u8"),
-    dict(output="zmq", zmq_output_format="s8", digital_gain=3.0),
-    dict(cic_eq_clock_rate=32_768_000),
-    dict(tii_enable=True, tii_comb=5, tii_pattern=31)])
-def test_modulator_variants_on_card(card, kw):
-    s = ModSettings(dab_mode=1, device_interleave=False,
+@pytest.mark.parametrize("mode,kw", [
+    (1, dict(output="file", file_output_format="u8")),
+    (1, dict(output="zmq", zmq_output_format="s8", digital_gain=3.0)),
+    (1, dict(cic_eq_clock_rate=32_768_000)),
+    (1, dict(tii_enable=True, tii_comb=5, tii_pattern=31)),
+    (2, dict(tii_enable=True, tii_comb=5, tii_pattern=31,
+             tii_old_variant=True)),
+    (2, dict(ofdm_window_overlap=90)), (3, dict(ofdm_window_overlap=63)),
+    (4, dict(ofdm_window_overlap=90))],
+    ids=["kw0", "kw1", "kw2", "kw3", "tii_old_tm2", "window90_tm2",
+         "window63_tm3", "window90_tm4"])
+def test_modulator_variants_on_card(card, mode, kw):
+    s = ModSettings(dab_mode=mode, device_interleave=False,
                     **kw).normalise_for_output()
-    gpu, cpu, _ = _run_both(card, s)
+    gpu, cpu, _ = _run_both(card, s, mode=mode)
     for (g, gs), (c, cs) in zip(gpu, cpu):
         if isinstance(c, tuple):
             _close(g, c, 3e-5)
@@ -661,27 +775,45 @@ def test_int32_shift_and_mask_on_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,ov", [(1, 0), (1, 10), (1, 90), (2, 90),
-                                     (3, 63), (4, 0)])
-def test_kiss_on_card_equals_cpu(card, mode, ov):
+@pytest.mark.parametrize("mode,ov,golden", [
+    (1, 0, None), (1, 10, None), (1, 90, None), (2, 90, None),
+    (3, 63, None), (4, 0, None), (1, 0, "e2e_iq_fixed"),
+    (1, 90, "e2e_iq_fixed_ov90")],
+    ids=["1-0", "1-10", "1-90", "2-90", "3-63", "4-0", "e2e_iq_fixed",
+         "e2e_iq_fixed_ov90"])
+def test_kiss_on_card_equals_cpu(card, mode, ov, golden):
     """fft_engine=kiss on the card, bit for bit the CPU's (two batches,
-    the state carried), at every TM's transform size."""
+    the state carried), at every TM's transform size; on the goldens'
+    payloads (one batch of 2 TFs, bench.py's ensemble) the card's and
+    the CPU's words equal the reference's sc16 samples too."""
     p = tables.mode_params(mode)
-    n = 2 * p.cif_count
-    raw = synth_eti_batch(2 * n, mode=mode, seed=mode)
     s = ModSettings(dab_mode=mode, fft_engine="kiss", ofdm_window_overlap=ov)
+    if golden:
+        layout = make_default_layout(mode, BENCH_SPECS)
+        batches = [(load_golden("e2e_fixed_fic_in").reshape(8, 96),
+                    tuple(load_golden(f"e2e_fixed_sub{i}_in").reshape(8, -1)
+                          for i in (0, 1)))]
+    else:
+        layout = make_default_layout(mode)
+        n = 2 * p.cif_count
+        raw = synth_eti_batch(2 * n, mode=mode, seed=mode)
+        batches = [(b.fic, b.subchannels) for b in (
+            parse_eti_frames(raw[:n]), parse_eti_frames(raw[n:]))]
     outs = {}
     for dev in (card, "cpu"):
-        m = Modulator(make_default_layout(mode), s, device=dev)
+        m = Modulator(layout, s, device=dev)
         st, res = m.init_state(), []
-        for i in range(2):
-            out, st, stats = m.modulate_eti(
-                parse_eti_frames(raw[n * i:n * (i + 1)]), st)
+        for fic, subs in batches:
+            out, st, stats = m.modulate(fic, tuple(subs), st)
             res.append(out.cpu())
             assert int(stats["num_clipped"]) == 0
         outs[str(dev)] = res
     for g, c in zip(outs["cuda"], outs["cpu"]):
         assert g.dtype == torch.int32 and torch.equal(g, c)
+    if golden:
+        np.testing.assert_array_equal(
+            outs["cuda"][0].numpy().view(np.int16).reshape(-1),
+            load_golden(golden))
 
 
 def _kiss_table(mode, device):
@@ -774,6 +906,48 @@ def test_frontend_kernel_equals_plain_on_card(card, case, tfs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,specs,n_frames", [
+    ("e2e", BENCH_SPECS, 8), ("e2e_real", REALISTIC_MUX_SPECS, 16)])
+def test_frontend_kernel_matches_goldens_on_card(card, name, specs,
+                                                  n_frames):
+    """K5 on the reference's payloads (2 TFs of two sub-channels, 4 of the
+    17): its data symbols, in carrier order, are the reference's
+    e2e_symbols / e2e_real_symbols within 4e-6 (the reference rounds
+    float32 through its product chain, K5's phases are exact), the
+    phases equal; its NULL rows silent; one launch."""
+    from dabmod_tpu_torch.ops import frontend_kernel
+    from dabmod_tpu_torch.ops.cplx import planes_to_complex
+    m = Modulator(make_default_layout(1, specs), ModSettings(dab_mode=1),
+                  device=card)
+    fic = load_golden(f"{name}_fic_in").reshape(n_frames, 96)
+    if name == "e2e":
+        subs = tuple(load_golden(f"e2e_sub{i}_in").reshape(n_frames, -1)
+                     for i in (0, 1))
+    else:
+        frames = load_golden("e2e_real_sub_in").reshape(n_frames, -1)
+        offs = np.cumsum([0] + [stl * 8 for _, stl, _ in specs])
+        subs = tuple(frames[:, offs[i]:offs[i + 1]]
+                     for i in range(len(specs)))
+    before = frontend_kernel.frontend.launches
+    (re_, im_), _ = frontend_kernel.frontend(
+        torch.as_tensor(fic, device=card),
+        tuple(torch.as_tensor(x, device=card) for x in subs),
+        m.init_state()["ti_history"],
+        torch.zeros((), dtype=torch.int32, device=card), m._frontend)
+    torch.cuda.synchronize()
+    assert frontend_kernel.frontend.launches == before + 1
+    assert not re_[:, 0].any() and not im_[:, 0].any()
+    got = planes_to_complex(tuple(
+        ofdm.freq_interleave(x[:, 1:], m._inv_perm_t).cpu()
+        for x in (re_, im_)))
+    expect = load_golden(f"{name}_symbols").reshape(n_frames // 4, 76, 1536)
+    assert got.shape == expect.shape
+    np.testing.assert_allclose(got, expect, atol=4e-6)
+    np.testing.assert_array_equal(np.angle(got).round(3),
+                                  np.angle(expect).round(3))
+
+
+@pytest.mark.cuda
 def test_frontend_kernel_launch_shape_on_card(card):
     """K5 reports the threads and carriers a block that frontend_kernel
     assumes, and fits on an SM."""
@@ -800,7 +974,7 @@ def test_frontend_kernel_once_a_captured_step_on_card(card, tmp_path, path):
     def run():
         for batch in batches[1:]:
             _, st[0], _ = m.modulate(*batch, st[0])
-    traced = _traced_launches(run)
+    _, traced = bench_gpu.traced_launches(torch, run)
     (cap,) = m.compiled.graphs.values()
     assert cap.launches["frontend"] == 1
     assert frontend_kernel.frontend.launches - before == 2
@@ -961,6 +1135,84 @@ def test_runtime_uploads_through_pinned_memory(card, tmp_path):
     rt.close()
 
 
+@pytest.mark.cuda
+def test_runtime_swaps_dpd_files_over_rc_on_card(card, tmp_path):
+    """What the DPD engine and the GUI do to a runtime on the card (they set
+    `poly coeffile` over the RC): a poly file of the same shape hot-swaps
+    into the modulator whose graph replays, a LUT file rebuilds the
+    modulator once, a second LUT file hot-swaps into the new one's graph;
+    each swap's coefficients reach the modulator the next batch runs."""
+    from dabmod_tpu_torch.rc import rcs
+    from dabmod_tpu_torch.runtime import ModRuntime
+    inp = tmp_path / "in.eti"
+    inp.write_bytes(synth_eti_batch(32, mode=1, subch_specs=BENCH_SPECS,
+                                    seed=13).tobytes())
+    rt = ModRuntime(ModSettings(
+        input_name=str(inp), output="file", output_name=str(tmp_path / "o"),
+        file_output_format="complexf", batch_tf=2,
+        poly_coef_file=_poly_file(tmp_path)).normalise_for_output(),
+        device=card)
+    lut1 = _lut_file(tmp_path)
+    lut2 = tmp_path / "lut2.coef"     # its first entry 0.95 in place of 1.0
+    lut2.write_text((tmp_path / "lut.coef").read_text().replace(
+        "1.0\n", "0.95\n", 1))
+    try:
+        rt.run_batches(max_batches=1)
+        poly_mod = rt.modulator
+        rcs.set_param("poly", "coeffile", _poly_file(
+            tmp_path, (0.9, 0.01, 0.0, 0.0, 0.0), (0.05, 0.0, 0.0, 0.0, 0.0),
+            "p2.coef"))
+        rt.run_batches(max_batches=1)
+        assert rt.modulator is poly_mod
+        np.testing.assert_array_equal(poly_mod._poly_am,
+                                      np.float32((0.9, 0.01, 0, 0, 0)))
+        rcs.set_param("poly", "coeffile", lut1)
+        rt.run_batches(max_batches=1)
+        lut_mod = rt.modulator
+        assert lut_mod is not poly_mod and lut_mod._lut is not None
+        rcs.set_param("poly", "coeffile", str(lut2))
+        rt.run_batches(max_batches=1)
+        assert rt.modulator is lut_mod
+        assert float(lut_mod._lut[0, 0]) == np.float32(0.95)
+        for m in (poly_mod, lut_mod):
+            (cap,) = m.compiled.graphs.values()
+            assert cap.replays == 2
+    finally:
+        rt.close()
+    assert rt.framecount == 32
+
+
+@pytest.mark.cuda
+def test_cli_on_card_writes_the_runtimes_bytes(card, tmp_path):
+    """`python -m dabmod_tpu_torch.cli <ini>` as a subprocess on the card
+    (an ETI file of two batches of 24 TFs of the 17 sub-channels into an
+    s16 file): exit 0 and the bytes ModRuntime writes in this process
+    from the same INI."""
+    from dabmod_tpu_torch.config import parse_ini
+    from dabmod_tpu_torch.runtime import ModRuntime
+    eti = tmp_path / "in.eti"
+    synth_eti_batch(2 * 24 * 4, mode=1, subch_specs=REALISTIC_MUX_SPECS,
+                    seed=7).tofile(str(eti))
+
+    def ini(name):
+        path = tmp_path / f"{name}.ini"
+        path.write_text(f"[input]\ntransport=file\nsource={eti}\n"
+                        f"[modulator]\ngainmode=var\nbatch_tf=24\n"
+                        f"[fileoutput]\nfilename={tmp_path / name}.iq\n"
+                        f"format=s16\n")
+        return str(path)
+    rt = ModRuntime(parse_ini(ini("inproc")), device=card)
+    assert rt.run() == 0
+    rt.close()
+    proc = subprocess.run([sys.executable, "-m", "dabmod_tpu_torch.cli",
+                           ini("cli")], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = (tmp_path / "cli.iq").read_bytes()
+    assert len(got) == 2 * 24 * tables.mode_params(1).tf_samples * 4
+    assert got == (tmp_path / "inproc.iq").read_bytes()
+
+
 def _f32_file_settings(tmp_path, chain, inp, out, **kw):
     """A complexf file sink behind the plain TM I chain ("main") or the DPD
     chain at the UHD scale, as r17_dpd8m192 transmits it ("dpd_8m192"),
@@ -1063,17 +1315,12 @@ def test_edi_tcp_into_loopback_on_card_equals_cpu(card):
                                    atol=3e-5 * np.abs(r).max())
 
 
-@pytest.mark.cuda
-def test_tcp_eti_into_s16_sdr_on_card_equals_cpu(card, monkeypatch):
-    """ETI over TCP into an s16 SdrOutput (output=dexter's wire, its
-    driver replaced by a recording device): the card's wire words equal
-    the CPU's within 1 LSB, matched by FCT; the pinned batch buffers the
-    sink's queued frames view are released after close."""
-    import gc
-    from live_stream import TcpServer, record_transmit
+def _silent_dexter(monkeypatch):
+    """output=dexter's wire with its driver replaced by a device that
+    transmits nothing (live_stream.record_transmit records its frames)."""
     from dabmod_tpu_torch.io import sdr
 
-    class Recording(sdr.SdrDevice):
+    class Silent(sdr.SdrDevice):
         def __init__(self, conf=None):
             pass
 
@@ -1083,23 +1330,36 @@ def test_tcp_eti_into_s16_sdr_on_card_equals_cpu(card, monkeypatch):
         def transmit_frame(self, samples, ts):
             pass
 
-    monkeypatch.setattr(sdr, "DexterDevice", Recording)
+    monkeypatch.setattr(sdr, "DexterDevice", Silent)
+
+
+def _pinned_in_use() -> int:
+    """Bytes of the pinned tensors Python still references (a storage
+    once)."""
+    import gc
+    gc.collect()
+    live = {}
+    for o in gc.get_objects():
+        if (isinstance(o, torch.Tensor) and o.device.type == "cpu"
+                and o.is_pinned()):
+            live[o.untyped_storage().data_ptr()] = \
+                o.untyped_storage().nbytes()
+    return sum(live.values())
+
+
+@pytest.mark.cuda
+def test_tcp_eti_into_s16_sdr_on_card_equals_cpu(card, monkeypatch):
+    """ETI over TCP into an s16 SdrOutput (output=dexter's wire, its
+    driver replaced by a recording device): the card's wire words equal
+    the CPU's within 1 LSB, matched by FCT; the pinned batch buffers the
+    sink's queued frames view are released after close."""
+    from live_stream import TcpServer, record_transmit
+    _silent_dexter(monkeypatch)
     frames = synth_eti_batch(16, mode=1, subch_specs=BENCH_SPECS, seed=42)
     srv = TcpServer(frames.tobytes())
     got = {}
-    def pinned_in_use():
-        """Bytes of the pinned tensors Python still references."""
-        gc.collect()
-        live = {}
-        for o in gc.get_objects():
-            if (isinstance(o, torch.Tensor) and o.device.type == "cpu"
-                    and o.is_pinned()):
-                live[o.untyped_storage().data_ptr()] = \
-                    o.untyped_storage().nbytes()
-        return sum(live.values())
-
     try:
-        before = pinned_in_use()
+        before = _pinned_in_use()
         for dev in ("cuda", "cpu"):
             rt = _live_runtime(dev, input_transport="tcp",
                                input_name=f"tcp://127.0.0.1:{srv.port}",
@@ -1113,7 +1373,7 @@ def test_tcp_eti_into_s16_sdr_on_card_equals_cpu(card, monkeypatch):
                     + out.muted) == 4
             if dev == "cuda":
                 del rt, out
-                after = pinned_in_use()
+                after = _pinned_in_use()
                 assert after <= before + (1 << 20), (before, after)
     finally:
         srv.close()
@@ -1124,6 +1384,42 @@ def test_tcp_eti_into_s16_sdr_on_card_equals_cpu(card, monkeypatch):
         assert g.dtype == r.dtype == np.int32
         d = np.abs(g.view(np.int16).astype(np.int32) - r.view(np.int16))
         assert d.max() <= 1
+
+
+@pytest.mark.cuda
+def test_pinned_host_memory_flat_over_runs_on_card(card, monkeypatch):
+    """One runtime, ETI over TCP into the s16 SdrOutput, run() two batches
+    at a time eight times: the pinned host memory Python references (the
+    batches' pinned blocks, which the sink's queued frames view) grows by
+    no more than one batch's output block after the first run, and none
+    is referenced after close."""
+    from live_stream import TcpServer
+    runs, per_run = 8, 2
+    _silent_dexter(monkeypatch)
+    frames = synth_eti_batch(runs * per_run * 8, mode=1,
+                             subch_specs=BENCH_SPECS, seed=43)
+    # a batch's s16 words, in the block the host allocator gives them (a
+    # request rounded up to a power of two)
+    block = 1 << (2 * tables.mode_params(1).tf_samples * 4 - 1).bit_length()
+    srv = TcpServer(frames.tobytes())
+    try:
+        before = _pinned_in_use()
+        rt = _live_runtime("cuda", input_transport="tcp",
+                           input_name=f"tcp://127.0.0.1:{srv.port}",
+                           output="dexter", tcp_timeout=0.5)
+        held = []
+        for k in range(runs):
+            assert rt.run(per_run) == 0
+            torch.cuda.synchronize()
+            assert rt.framecount == (k + 1) * per_run * 8
+            held.append(_pinned_in_use())
+        rt.close()
+        del rt
+        after = _pinned_in_use()
+    finally:
+        srv.close()
+    assert max(held[1:]) <= held[0] + block, held
+    assert after <= before + (1 << 20), (before, after)
 
 
 @pytest.mark.cuda
@@ -1189,18 +1485,21 @@ def test_sharded_step_on_card_equals_unsharded(card, tmp_path):
 
 
 @pytest.mark.cuda
-def test_captured_sharded_step_over_nccl_on_card(card, tmp_path):
-    """One NCCL rank on the card (parallel.launch.spawn on
-    tests/torch_sharding_ranks.py's captured_streams): ShardedModulator
-    captures its step (a GraphStep of _sharded_impl holding the
-    all_reduces) and replays it; two batches of 8 TFs of the DPD chain
-    (K2, K3), of s16 (K1), and of the chain with a hot swap and a gain
-    change before the second.  On the rank the captured step equals the
-    eager sharded step to the bit, and the unsharded step on the card
-    (f32 within 1e-4*max|ref|, s16 within 1 LSB with equal num_clipped,
-    the state equal); EXCHANGES counts the warm-up's and the capture's
+@pytest.mark.parametrize("world", [1, 4])
+def test_captured_sharded_step_over_nccl_on_card(card, tmp_path, world):
+    """NCCL ranks, one a card (parallel.launch.spawn on
+    tests/torch_sharding_ranks.py's captured_streams; world 4 skips below
+    four cards): ShardedModulator captures its step (a GraphStep of
+    _sharded_impl holding the all_reduces) and replays it; two batches of
+    8 TFs of the DPD chain (K2, K3), of s16 (K1), and of the chain with a
+    hot swap and a gain change before the second.  On every rank the
+    captured step equals the eager sharded step to the bit; the ranks'
+    TFs together equal the unsharded step on the card (f32 within
+    1e-4*max|ref|, s16 within 1 LSB with equal num_clipped, the state
+    equal on every rank); EXCHANGES counts the warm-up's and the capture's
     collectives and no replay's; timing the exchanges inside the capture
     raises."""
+    _cards(world)
     import torch_sharding_ranks as R
     from dabmod_tpu_torch.parallel.launch import spawn
     from torch.utils._pytree import tree_leaves
@@ -1222,18 +1521,26 @@ def test_captured_sharded_step_over_nccl_on_card(card, tmp_path):
             "digital_gain": 0.8, "gain_mode_variance": 3.0}
     cases = [(s16, BENCH_SPECS, 11, None), (chain, BENCH_SPECS, 11, None),
              (chain, BENCH_SPECS, 11, swap)]
-    (res,) = spawn(R.captured_streams, 1, backend="nccl", device="cuda",
-                   store_path=str(tmp_path / "store"), timeout_s=300,
-                   args=(cases, False))
-    raised, graphs = res[-1]
-    assert raised and "graph capture" in raised and graphs == 0
-    for (s, _, _, sw), rec in zip(cases, res[:-1]):
-        got, want = tree_leaves(rec["captured"]), tree_leaves(rec["eager"])
-        assert len(got) == len(want)
-        for a, b in zip(got, want):
-            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
-        assert rec["replays"] == {R.N_TF: R.BATCHES}
-        assert rec["collectives"] == [2, 0]     # one a step: warm-up, capture
+    ranks = spawn(R.captured_streams, world, backend="nccl", device="cuda",
+                  store_path=str(tmp_path / "store"), timeout_s=300,
+                  args=(cases, False))
+    for res in ranks:
+        raised, graphs = res[-1]
+        assert raised and "graph capture" in raised and graphs == 0
+    for c, (s, _, _, sw) in enumerate(cases):
+        recs = [res[c] for res in ranks]
+        for rec in recs:
+            got = tree_leaves(rec["captured"])
+            want = tree_leaves(rec["eager"])
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+            assert rec["replays"] == {R.N_TF // world: R.BATCHES}
+            # a step's collectives, counted at the warm-up and the
+            # capture: the resampler's carry or the num_clipped sum, and
+            # from world 2 on the time interleaver's rows
+            per_step = 1 if world == 1 else 2
+            assert rec["collectives"] == [2 * per_step, 0]
         m = R.make_modulator(s, device=card)
         state = m.init_state()
         for k, b in enumerate(R.eti_batches(1, BENCH_SPECS, 11)):
@@ -1241,24 +1548,28 @@ def test_captured_sharded_step_over_nccl_on_card(card, tmp_path):
                 R.apply_swap(m, sw)
             o, state, st_ = m.modulate_eti(b, state)
             ref, ref_state, ref_stats = R.to_numpy((o, state, st_))
-            out, st, stats = rec["captured"][k]
+            parts = [rec["captured"][k] for rec in recs]
             if s.output == "uhd":
                 for j in (0, 1):
                     np.testing.assert_allclose(
-                        out[j], ref[j], rtol=0,
-                        atol=1e-4 * np.abs(ref[j]).max())
+                        np.concatenate([p[0][j] for p in parts]), ref[j],
+                        rtol=0, atol=1e-4 * np.abs(ref[j]).max())
             else:
+                out = np.concatenate([p[0] for p in parts])
                 d = np.abs(out.view(np.int16).astype(np.int32)
                            - ref.view(np.int16))
                 assert d.max() <= 1
             for key in ("cfr_clip", "cfr_errclip", "num_clipped",
                         "mer_valid"):
                 if key in ref_stats:
-                    np.testing.assert_array_equal(stats[key], ref_stats[key])
-            for key, v in ref_state.items():
-                for a, x in zip(*(y if isinstance(y, tuple) else (y,)
-                                  for y in (st[key], v))):
-                    np.testing.assert_array_equal(a, x)
+                    got = (parts[0][2][key] if key == "num_clipped" else
+                           np.concatenate([p[2][key] for p in parts]))
+                    np.testing.assert_array_equal(got, ref_stats[key])
+            for _, st, _ in parts:
+                for key, v in ref_state.items():
+                    for a, x in zip(*(y if isinstance(y, tuple) else (y,)
+                                      for y in (st[key], v))):
+                        np.testing.assert_array_equal(a, x)
 
 
 # ---------------------------------------------------------------------------
@@ -1416,40 +1727,6 @@ def test_returned_output_unchanged_after_next_call_on_card(card):
     assert all(torch.equal(a, b) for a, b in zip(_leaves(first), kept))
 
 
-# the kernels' names on the card: the counted wrapper of each
-KERNEL_NAMES = {"ofdm_ifft_kernel": "ofdm_backend",
-                "ofdm_cfr_kernel": "ofdm_cfr_backend",
-                "resample_poly": "resample",
-                "kiss_ifft_kernel": "kiss_ifft",
-                "frontend_kernel": "frontend"}
-
-
-def _kernel_of(event_name: str) -> str:
-    """A device event's kernel name without its namespace, template
-    arguments and parameters."""
-    name = event_name.replace("(anonymous namespace)::", "")
-    return name.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
-
-
-def _traced_launches(fn) -> dict:
-    """Runs fn under torch.profiler: the device's launches of each counted
-    kernel, from the trace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(KERNEL_NAMES.values(), 0)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            k = KERNEL_NAMES.get(_kernel_of(e.name))
-            if k is not None:
-                out[k] += 1
-    return out
-
-
 def _reserved_bytes() -> int:
     """The caching allocator's device memory, its unused blocks released:
     what the live tensors and the graphs' pools hold."""
@@ -1477,7 +1754,7 @@ def test_launch_counts_equal_replays_on_card(card):
     def run():
         for batch in batches:
             _, st[0], _ = m.modulate(*batch, st[0])
-    traced = _traced_launches(run)
+    _, traced = bench_gpu.traced_launches(torch, run)
     (cap,) = m.compiled.graphs.values()
     assert cap.launches == {"ofdm_backend": 0, "ofdm_cfr_backend": 1,
                             "resample": 1, "kiss_ifft": 0, "frontend": 1}
@@ -1492,7 +1769,6 @@ def test_bench_gpu_default_run_on_card(card):
     """bench_gpu.py's default run, briefly: its first batch equals the
     port on the CPU, the captured and the eager step are timed, and the
     line carries bench.py's keys and the card."""
-    import bench_gpu
     rec = bench_gpu.bench_default(torch, 4, steps=3, runs=5)
     assert rec["metric"] == bench_gpu.METRIC and rec["unit"] == "samples/s"
     assert rec["value"] > 0 and rec["eager_value"] > 0
@@ -1507,30 +1783,39 @@ def test_bench_gpu_stages_on_card(card):
     "resamp 8.192M" row (K3): every stage the step opens
     has device time and launches, K2 under ofdm_ifft, K3 under resampler,
     "(other)" within 5 %, the stages' sum within 2 % of device busy."""
-    import bench_gpu
     for name in ("CFR", "resamp 8.192M"):
         rec = bench_gpu.profile_stages(torch, name, 2, steps=3)
         assert bench_gpu.stage_problems(rec) == [], name
-        kernel = "ofdm_cfr" if name == "CFR" else "resample_poly"
+        kernel = "ofdm_cfr_backend" if name == "CFR" else "resample"
         stage = bench_gpu.KERNEL_STAGE[kernel]
         assert rec["stages"][stage]["kernels"].get(kernel, 0) == 1
 
 
 @pytest.mark.cuda
-def test_bench_gpu_scaling_on_card(card):
+@pytest.mark.parametrize("cards", [1, 4])
+def test_bench_gpu_scaling_on_card(card, cards):
     """bench_gpu.py --scaling, briefly: world 1 in the process and one
-    --scaling-worker process through init_distributed over NCCL, each the
-    captured sharded step equal to the unsharded step on the card."""
-    import bench_gpu
+    --scaling-worker process through init_distributed over NCCL; on four
+    cards (skips below) also worlds 2 and 4 spawned and 2 x 2
+    --scaling-worker processes; each the captured sharded step equal to
+    the unsharded step on the card."""
+    _cards(cards)
     kw = dict(config="base", batch_per_rank=2, steps=3, runs=2, traced=2)
-    rows = (bench_gpu.run_scaling(torch, (1,), **kw)["rows"]
-            + bench_gpu.run_hosts(torch, (1,), 1, **kw)["rows"])
-    assert [r["launcher"] for r in rows] == ["in process",
-                                             "init_distributed"]
+    if cards == 1:
+        rows = (bench_gpu.run_scaling(torch, (1,), **kw)["rows"]
+                + bench_gpu.run_hosts(torch, (1,), 1, **kw)["rows"])
+        launchers = ["in process", "init_distributed"]
+    else:
+        rows = (bench_gpu.run_scaling(torch, (1, 2, 4), **kw)["rows"]
+                + bench_gpu.run_hosts(torch, (2,), 2, **kw)["rows"])
+        launchers = ["in process", "spawn", "spawn", "init_distributed"]
+    assert [r["launcher"] for r in rows] == launchers
     for r in rows:
         assert r["captured"] and r["own_cards"] and r["elementwise_ok"]
-        assert r["efficiency"] == 1.0
-        assert r["ranks"][0]["launches"]["ofdm_ifft"] == 2
+        assert r["ranks"][0]["launches"]["ofdm_backend"] == 2
+    # each record's efficiency against its row of fewest ranks
+    assert rows[0]["efficiency"] == rows[-1]["efficiency"] == 1.0
+    assert all(r["efficiency"] > 0 for r in rows)
 
 
 @pytest.mark.cuda
@@ -1538,7 +1823,6 @@ def test_bench_gpu_collectives_on_card(card):
     """bench_gpu.py --collectives on 2 gloo ranks sharing the card: the
     TI coupling's one all_reduce a step, the severed step eager and
     captured, and the rows labelled as no scaling."""
-    import bench_gpu
     rec = bench_gpu.run_collectives(torch, world=2, backend="gloo",
                                     steps=2, runs=2, traced=2)
     (r,) = rec["configs"]

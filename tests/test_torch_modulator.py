@@ -807,8 +807,8 @@ def test_dpd_lut_matches_reference(tmp_path):
 
 
 def test_dpd_chain_matches_reference(tmp_path):
-    """The chain that feeds DPD (chip_smoke.py's realistic17_dpd_8m192 at
-    2 TFs a batch, bench.py's layout): TII, CFR 40/3, the windowed guard
+    """The chain that feeds DPD (the benchmark's r17_dpd8m192 at 2 TFs a
+    batch, bench.py's layout): TII, CFR 40/3, the windowed guard
     interval (overlap 90), the default FIR, 8.192 MS/s through K3's plan
     and the poly DPD at the UHD scale; two batches with the state carried,
     the statistics and the state as dabmod_tpu's."""

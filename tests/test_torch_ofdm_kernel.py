@@ -4,8 +4,8 @@ On the CPU the wrapper takes the plain PyTorch version, which is held here
 against dabmod_tpu's Pallas kernel run in interpret mode with the same
 carrier map, at all four spacings.  The CUDA kernel itself runs only on a
 card: its tests carry the `cuda` marker and skip without one
-(tests/test_torch_cuda.py; chip_smoke.py runs the same comparison at full
-size).
+(tests/test_torch_cuda.py; time_kernels.py times it beside its plain
+version at full size).
 """
 import jax
 import jax.numpy as jnp

@@ -7,8 +7,8 @@ version, which is held against dabmod_tpu's resample_poly (fp32 on the
 CPU: rtol 1e-5, atol 1e-5*max|ref|, sums in other orders) and against its
 Pallas kernel run in interpret mode (tests/test_filters.py:236's rtol
 1e-3, atol 2e-4: that kernel emulates Precision.HIGH with a bf16 split).
-The CUDA kernel itself runs only on a card (tests/test_torch_cuda.py,
-chip_smoke.py); its index arithmetic is transcribed to NumPy in
+The CUDA kernel itself runs only on a card (tests/test_torch_cuda.py);
+its index arithmetic is transcribed to NumPy in
 tests/resampler_model.py and held here against the plain version, JAX's
 resample_poly and an in-order fmaf sum of the unpadded band (bit for bit),
 with its shared-memory accesses checked for bank conflicts.
@@ -190,7 +190,7 @@ def test_table_stages_each_block_in_its_shared_memory(rate):
     assert lay.smem_bytes <= rk.SMEM_TARGET
 
 
-# every RES_RATES plan of chip_smoke.py, and two with run-time M
+# the plans of compile-time M (RATES), and two with run-time M
 MODEL_RATES = RATES + [1_536_000, 1_792_000]     # L/M 3/4 (K 43), 7/8 (37)
 
 
